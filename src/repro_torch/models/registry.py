@@ -1,0 +1,71 @@
+"""Public model API of the port, after ``repro/models/registry.py``.
+
+``build(cfg, device)`` returns a ``ModelApi`` whose functions run on
+``device`` (default ``cuda``).  This slice of the port serves the dense
+family; ``loss`` comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from . import transformer as tf
+from .common import ArchConfig
+
+#: families still to port, with the ROADMAP.md item that ports each
+PENDING_FAMILIES = {
+    "moe": "ROADMAP A10 (MoE)",
+    "ssm": "ROADMAP A9 (SSM slice)",
+    "hybrid": "ROADMAP A9-A10 (SSM slice, then MoE)",
+    "audio": "ROADMAP A11 (encoder-decoder and VLM)",
+    "vlm": "ROADMAP A11 (encoder-decoder and VLM)",
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; ``cuda`` without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} asked for but CUDA is not "
+                               "available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable          # generator -> params
+    prefill: Callable       # (params, batch, pad_to) -> (logits, cache, pos)
+    decode: Callable        # (params, cache, token, pos) -> (logits, cache)
+
+    def make_cache(self, batch: int, max_seq: int):
+        return tf.make_decode_cache(self.cfg, batch, max_seq, self.device)
+
+
+def build(cfg: ArchConfig, device="cuda") -> ModelApi:
+    if cfg.family in PENDING_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet; "
+            f"see {PENDING_FAMILIES[cfg.family]}")
+    dev = resolve_device(device)
+
+    def init(gen: torch.Generator):
+        if gen.device != dev:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        return tf.init_params(gen, cfg)
+
+    def prefill(params, batch, pad_to=None):
+        return tf.prefill(params, batch, cfg, pad_to=pad_to)
+
+    def decode(params, cache, token, pos):
+        return tf.decode_step(params, cache, token, pos, cfg)
+
+    return ModelApi(cfg=cfg, device=dev, init=init, prefill=prefill,
+                    decode=decode)

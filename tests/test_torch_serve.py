@@ -1,0 +1,122 @@
+"""Whole-model serving parity: the port's prefill and greedy decode against
+``repro.models`` on the reference's own parameters, for three dense
+scaled-down configs in fp32."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small shapes; leave the cores to the other test workers
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build as jax_build
+from repro_torch.configs import get_config
+from repro_torch.models.convert import flatten, params_from_jax
+from repro_torch.models.registry import build
+from repro_torch.runtime.steps import make_serve_step
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, S, STEPS = 2, 32, 4
+
+
+def _setup(arch, seed):
+    jcfg = jax_get_config(arch).scaled_down()
+    japi = jax_build(jcfg)
+    jparams = jax.jit(japi.init)(jax.random.PRNGKey(seed))
+    api = build(get_config(arch).scaled_down(), "cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tokens = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    return japi, jparams, api, params, tokens
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_match_jax(arch):
+    japi, jparams, api, params, tokens = _setup(arch, seed=0)
+    max_seq = S + STEPS
+    jlogits, jcache, _ = jax.jit(lambda p, b: japi.prefill(p, b, pad_to=max_seq))(
+        jparams, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        logits, cache, pos = api.prefill(params, {"tokens": torch.from_numpy(tokens)},
+                                         pad_to=max_seq)
+    assert pos == S
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert set(cache) == set(jcache)
+    for key in cache:
+        assert cache[key].shape == jcache[key].shape, key
+        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), **TOL)
+
+    jdecode = jax.jit(japi.decode)
+    serve_step = make_serve_step(api, greedy=False)
+    tok = np.asarray(jnp.argmax(jlogits[:, -1], -1)).astype(np.int32)[:, None]
+    for i in range(STEPS):
+        jlogits, jcache = jdecode(jparams, jcache, jnp.asarray(tok), jnp.int32(S + i))
+        with torch.inference_mode():
+            logits, cache = serve_step(params, cache, torch.from_numpy(tok), S + i)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+        jtok = np.asarray(jnp.argmax(jlogits[:, -1], -1)).astype(np.int32)
+        np.testing.assert_array_equal(logits[:, -1].argmax(-1).numpy(), jtok)
+        tok = jtok[:, None]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_consistency(arch):
+    """Decode logits after a prefill match a prefill of the extended
+    sequence (tests/test_arch_smoke.py::test_prefill_decode_consistency)."""
+    _, _, api, params, tokens = _setup(arch, seed=2)
+    tokens = torch.from_numpy(tokens)
+    with torch.inference_mode():
+        logits_p, cache, pos = api.prefill(params, {"tokens": tokens}, pad_to=S + 4)
+        assert logits_p.shape == (B, 1, api.cfg.vocab_size)
+        assert torch.isfinite(logits_p).all()
+        next_tok = logits_p[:, -1].argmax(-1).to(torch.int32)[:, None]
+        logits_d, cache = api.decode(params, cache, next_tok, S)
+        assert logits_d.shape == (B, 1, api.cfg.vocab_size)
+        assert torch.isfinite(logits_d).all()
+        ext = torch.cat([tokens, next_tok], dim=1)
+        logits_full, _, _ = api.prefill(params, {"tokens": ext})
+    np.testing.assert_allclose(logits_d[:, 0].numpy(), logits_full[:, -1].numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_param_tree_layout_matches_jax():
+    """Same paths, shapes and dtypes as the reference tree, so weights carry
+    across as a byte copy (bf16 included)."""
+    arch = "h2o-danube-3-4b"
+    jcfg = jax_get_config(arch).scaled_down(param_dtype="bfloat16")
+    jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(0))
+    jflat = {"/".join(str(getattr(k, "key", getattr(k, "idx", ""))) for k in path): leaf
+             for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    ported = flatten(params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"))
+    assert list(ported) == list(jflat)
+    own = flatten(build(get_config(arch).scaled_down(param_dtype="bfloat16"), "cpu")
+                  .init(torch.Generator().manual_seed(0)))
+    assert list(own) == list(jflat)
+    for path, leaf in jflat.items():
+        assert tuple(own[path].shape) == leaf.shape, path
+        assert own[path].dtype == torch.bfloat16
+        np.testing.assert_array_equal(ported[path].view(torch.uint16).numpy(),
+                                      np.asarray(leaf).view(np.uint16))
+
+
+def test_unported_family_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(get_config("dbrx-132b").scaled_down(), "cpu")
+
+
+def test_serve_cli_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "h2o-danube-3-4b",
+         "--device", "cpu", "--requests", "2", "--prompt-len", "16", "--gen-len", "4"],
+        env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "prefill 2x16" in out.stdout and "decoded 3 steps x 2 seqs" in out.stdout

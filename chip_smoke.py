@@ -4,15 +4,27 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every CUDA kernel of the port from ``src/repro_torch`` (``nvcc``);
-3. holds each kernel against its plain PyTorch version on the card;
+2. builds every CUDA kernel of the port from ``src/repro_torch`` (``nvcc``,
+   one process per source, all at once);
+3. holds each kernel against its plain PyTorch version on the card and
+   times both: flash attention (``kernel_check``, ``kernel_times``) and the
+   lanesum32 checksum (``checksum_check``, bit-exact, a buffer above 2 GiB
+   included; ``checksum_times``);
 4. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
    a seed) through ``repro_torch.launch.serve``: 4 requests x 512-token
    prompts to 32 tokens, then 1 request x a 5120-token prompt to 8 tokens,
    and checks finite logits, 24 kernel launches per prefill, the same
    greedy first token through the plain attention, and logits about as
    close to an fp32 prefill as the plain bf16 prefill's;
-5. prints one JSON line of per-kernel launches, times and bounds, then
+5. trains full-width h2o-danube-3-4b cut to 2 layers through
+   ``repro_torch.launch.train`` (batch 2 x 2048 tokens, bf16 parameters,
+   fp32 AdamW moments, a corpus and checkpoints on the POSIX Connector in
+   a temporary directory): a run stopped by an injected failure at step 5,
+   then a restart from the step-4 checkpoint; it checks the loss and
+   gradients against plain-attention steps in bf16 and fp32, the kernel
+   launches per step and per checkpoint, the restored bytes, the digests
+   on disk against numpy, and that a flipped byte fails the restore;
+6. prints one JSON line of per-kernel launches, times and bounds, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -23,10 +35,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -47,7 +64,8 @@ CHECK_CASES = [
     (2, 300, 300, 32, 8, 120, True, 128),
 ]
 MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
-              (1, 5120, 5120, 32, 8, 120, True, 4096)]
+              (1, 5120, 5120, 32, 8, 120, True, 4096),
+              (2, 2048, 2048, 32, 8, 120, True, 4096)]  # the training step's
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.py
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
@@ -55,6 +73,15 @@ LOGIT_SLACK = 1.5
 
 #: H100 SXM data sheet, dense: memory bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+
+#: training: full width, depth cut to TRAIN_LAYERS (checkpoint bytes on disk
+#: and the time limit), batch x tokens, injected failure before FAIL_AT
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FAIL_AT, CKPT_EVERY = 2, 2, 2048, 6, 5, 2
+#: checksum_check cases: tests/test_kernels.py's six shape and dtype pairs
+CHECKSUM_CASES = [((1024,), "float32"), ((8, 128), "float32"), ((1000,), "float32"),
+                  ((333,), "int32"), ((64, 9), "bfloat16"), ((5,), "float32")]
+#: words of the fp32 buffer above 2 GiB
+BIG_WORDS = 2**29 + 4099
 
 
 class SmokeFailure(Exception):
@@ -187,8 +214,8 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
     return out
 
 
-def serve_full_width(torch, serve, build, fa_kernel, device):
-    """The main path: full-width serving through repro_torch.launch.serve."""
+def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, device):
+    """The serving path: full-width serving through repro_torch.launch.serve."""
     results, launches = [], 0
     for B, S, gen_len in WORKLOADS:
         args = serve.parse_args(["--arch", ARCH, "--no-scaled-down", "--requests", str(B),
@@ -199,11 +226,12 @@ def serve_full_width(torch, serve, build, fa_kernel, device):
         check(cfg == serve.get_config(ARCH), f"not the full-width config: {cfg}")
         serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = 0
+        fa_kernel.launches = cs_kernel.launches = 0
         res = serve.serve(api, params, tokens, gen_len)
         n = fa_kernel.launches
         launches += n
         check(n == cfg.n_layers, f"{n} kernel launches in one prefill, want {cfg.n_layers}")
+        check(cs_kernel.launches == 0, "serving launched the checksum kernel")
         logits = res["logits"]
         check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -248,6 +276,384 @@ def serve_full_width(torch, serve, build, fa_kernel, device):
     return results, launches
 
 
+def checksum_inputs(torch, device):
+    """(name, tensor) pairs of checksum_check, all on the card."""
+    gen = torch.Generator(device).manual_seed(7)
+    out = []
+    for shape, dt in CHECKSUM_CASES:
+        if dt == "int32":
+            x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=device,
+                              dtype=torch.int32)
+        else:
+            x = torch.randn(shape, generator=gen, device=device).to(getattr(torch, dt))
+        out.append((f"{dt}{list(shape)}", x))
+    b8 = torch.randint(0, 256, (4099,), generator=gen, device=device, dtype=torch.uint8)
+    out += [(f"uint8[{n}]", b8[:n]) for n in (1, 2, 3, 5, 7)]
+    f32 = torch.randn(4099, generator=gen, device=device)
+    bf = f32.to(torch.bfloat16)
+    out += [("bfloat16[1001]", bf[:1001]),
+            ("int32 0-d", torch.tensor(-123456789, dtype=torch.int32, device=device)),
+            ("float32[37,53].T", f32[:37 * 53].reshape(37, 53).T),
+            ("bfloat16[3:1004] (offset 6 bytes)", bf[3:1004]),
+            ("uint8[1:1002] (offset 1 byte)", b8[1:1002]),
+            ("float32[1:1001] (offset 4 bytes)", f32[1:1001])]
+    return out
+
+
+def checksum_check(torch, cs_ops, cs_ref, device):
+    """The kernel against its plain PyTorch version and the numpy
+    digest_ref, bit-exact, and a flipped bit against the kernel."""
+    rows = []
+
+    def one(name, x):
+        got = cs_ops.checksum_digest(x)
+        plain = cs_ref.digest_of(*cs_ref.lanesum32_torch(x))
+        host = x.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+        numpy = cs_ref.digest_ref(host.data)
+        rows.append({"case": name, "nbytes": host.size, "kernel": got, "plain": plain,
+                     "digest_ref": numpy,
+                     "max_abs_word_diff": max(abs(int(got[i:i + 8], 16) - int(plain[i:i + 8], 16))
+                                              for i in (0, 8))})
+        check(got == plain == numpy, f"checksum {name}: kernel {got}, plain {plain}, "
+                                     f"digest_ref {numpy}")
+        return got
+
+    for name, x in checksum_inputs(torch, device):
+        one(name, x)
+    # one fp32 buffer above 2 GiB, then one bit flipped in its last words,
+    # above byte 2^31
+    big = torch.randn(BIG_WORDS, generator=torch.Generator(device).manual_seed(8),
+                      device=device)
+    d0 = one(f"float32[{BIG_WORDS}] ({BIG_WORDS * 4} bytes)", big)
+    word = BIG_WORDS - 1000
+    big.view(torch.int32)[word] ^= 1 << 3
+    d1 = one(f"float32[{BIG_WORDS}], bit 3 of byte {word * 4} flipped", big)
+    check(d1 != d0, "a flipped bit above 2 GiB left the digest unchanged")
+    small = torch.randn(4096, generator=torch.Generator(device).manual_seed(9), device=device)
+    d2 = cs_ops.checksum_digest(small)
+    small.view(torch.int32)[1234 // 4] ^= 1
+    check(cs_ops.checksum_digest(small) != d2, "a flipped bit left the digest unchanged")
+    torch.cuda.synchronize()
+    emit({"phase": "checksum_check", "ok": True, "cases": rows})
+    del big
+    torch.cuda.empty_cache()
+    return max(r["max_abs_word_diff"] for r in rows)
+
+
+def checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf):
+    """Kernel / plain times and the byte bound for the largest leaf of the
+    training state and a 1 GiB buffer.  No single PyTorch call computes
+    lanesum32, so there is no library time.  For the largest leaf, also the
+    host time of numpy ``digest_ref`` over its bytes, the reference's way
+    to digest a checkpoint leaf (on this machine's CPU, one run)."""
+    out = []
+    gen = torch.Generator(device).manual_seed(10)
+    for i, (name, shape, dt) in enumerate((largest_leaf, ("1 GiB", (2**28,), torch.float32))):
+        x = torch.randn(shape, generator=gen, device=device).to(dt)
+        acc = torch.zeros(2, dtype=torch.int32, device=device)
+        nbytes = x.numel() * x.element_size()
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: cs_kernel.lanesum32_into(x, acc), torch)
+        out.append({"buffer": name, "shape": list(shape), "dtype": str(dt), "bytes": nbytes,
+                    "ms": ms, "kernel_ms": ms,
+                    "plain_ms": time_ms(lambda: cs_ref.lanesum32_torch(x), torch),
+                    "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                    "share_of_bound": bound / ms})
+        if i == 0:
+            host = x.reshape(-1).view(torch.uint8).cpu().numpy()
+            t0 = time.perf_counter()
+            cs_ref.digest_ref(host.data)
+            out[-1]["host_digest_ref_ms"] = (time.perf_counter() - t0) * 1e3
+        del x
+    emit({"phase": "checksum_times", "rows": out})
+    return out
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def token_losses(api, params, batch, torch):
+    """Per-token xent of the batch (the terms whose mean is the loss), and
+    the logsumexp, gold logit and logit variance beside it."""
+    from repro_torch.models.transformer import final_hidden
+    with torch.no_grad():
+        x, _ = final_hidden(params, batch, api.cfg)
+        logits = (x @ params["lm_head"]["w"].to(x.dtype)).float()
+        labels = batch["labels"]
+        valid = labels >= 0
+        gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0][valid]
+        lse = torch.logsumexp(logits, dim=-1)[valid]
+        return lse - gold, {"lse": lse.mean().item(), "gold": gold.mean().item(),
+                            "logit_var": logits.var().item()}
+
+
+def train_numerics(torch, s, params, batch, fa_kernel, device):
+    """The kernel-path loss and gradients of the first batch against an fp32
+    plain-attention step of the same weights, beside a bf16 plain-attention
+    step.  Per gradient leaf, and for the per-token losses, the kernel
+    path's relative L2 error may be LOGIT_SLACK times the plain bf16 one's;
+    the mean loss may be off by LOGIT_SLACK times the plain bf16 path's RMS
+    per-token error (a mean of errors is at most their RMS)."""
+    from repro_torch.models.convert import flatten, unflatten
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.steps import value_and_grad
+    cfg = s.api.cfg
+    plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
+    exact = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"), device)
+    params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
+    fa_kernel.launches = 0
+    loss_k, _, g_k = value_and_grad(s.api, params, batch)
+    check(fa_kernel.launches == 2 * cfg.n_layers,
+          f"{fa_kernel.launches} flash launches in one loss and gradient, "
+          f"want {2 * cfg.n_layers} (forward, then the remat recompute)")
+    loss_p, _, g_p = value_and_grad(plain, params, batch)
+    loss_e, _, g_e = value_and_grad(exact, params32, batch)
+    check(fa_kernel.launches == 2 * cfg.n_layers, "a plain-attention step launched the kernel")
+    (tok_k, terms), (tok_p, _), (tok_e, _) = (
+        token_losses(api, p, batch, torch)
+        for api, p in ((s.api, params), (plain, params), (exact, params32)))
+    leaves = {}
+    g_k, g_p = flatten(g_k), flatten(g_p)
+    for path, ge in flatten(g_e).items():
+        rk, rp = rel_l2(g_k[path], ge), rel_l2(g_p[path], ge)
+        leaves[path] = {"kernel": rk, "plain_bf16": rp, "ratio": rk / rp}
+    tok_rk, tok_rp = rel_l2(tok_k, tok_e), rel_l2(tok_p, tok_e)
+    rms_p = (tok_p - tok_e).pow(2).mean().sqrt().item()
+    # untrained, the logits of a token are about N(0, var) and unrelated to
+    # its label, so the loss is about E[logsumexp] = ln V + var / 2
+    row = {"loss_kernel": loss_k.item(), "loss_plain_bf16": loss_p.item(),
+           "loss_fp32": loss_e.item(), "ln_vocab": math.log(cfg.vocab_size),
+           "untrained_loss": math.log(cfg.vocab_size) + terms["logit_var"] / 2,
+           "loss_terms_kernel": terms,
+           "loss_err_kernel": abs(loss_k.item() - loss_e.item()),
+           "loss_err_plain_bf16": abs(loss_p.item() - loss_e.item()),
+           "token_loss_rms_err_plain_bf16": rms_p,
+           "token_loss_rel_l2": {"kernel": tok_rk, "plain_bf16": tok_rp,
+                                 "ratio": tok_rk / tok_rp},
+           "max_grad_ratio": max(v["ratio"] for v in leaves.values()),
+           "grad_rel_l2": leaves}
+    emit({"phase": "train_numerics", **row})
+    check(abs(row["loss_kernel"] - row["untrained_loss"]) <= 1.0,
+          f"first loss {row['loss_kernel']} is not within 1.0 of ln V + var/2 = "
+          f"{row['untrained_loss']} ({terms})")
+    check(tok_rk <= LOGIT_SLACK * tok_rp, f"per-token losses: {row['token_loss_rel_l2']}")
+    check(row["loss_err_kernel"] <= LOGIT_SLACK * rms_p,
+          f"loss {row['loss_kernel']} vs fp32 {row['loss_fp32']}; plain bf16 RMS {rms_p}")
+    for path, v in leaves.items():
+        check(v["kernel"] <= LOGIT_SLACK * v["plain_bf16"], f"gradient of {path}: {v}")
+    del g_k, g_p, g_e, params32, plain, exact
+    torch.cuda.empty_cache()
+    return row
+
+
+def read_object(root, meta):
+    """The bytes of one manifest entry as written on disk."""
+    with open(os.path.join(root, meta["object"]), "rb") as f:
+        f.seek(meta.get("offset", 0))
+        return f.read(meta["length"]) if "length" in meta else f.read()
+
+
+def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
+    """The training path: full-width training through repro_torch.launch.train,
+    an injected failure, a restart, and the checkpoints' integrity."""
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.core.errors import IntegrityError
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.kernels.checksum.ref import digest_ref
+    from repro_torch.models.convert import flatten
+    from repro_torch.runtime.steps import make_train_state
+    from repro_torch.runtime.train import InjectedFailure, run_training
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        emit({"phase": "train_disk", "dir": tmp, "free_bytes": shutil.disk_usage(tmp).free})
+        argv = ["--arch", ARCH, "--no-scaled-down", "--n-layers", str(TRAIN_LAYERS),
+                "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                "--steps", str(TRAIN_STEPS), "--ckpt-every", str(CKPT_EVERY), "--retain", "2",
+                "--data-records", "64", "--log-every", "1", "--device", str(device),
+                "--seed", "0", "--ckpt-dir", tmp]
+        s = launch_train.setup(launch_train.parse_args(argv + ["--fail-at-step", str(FAIL_AT)]))
+        cfg = s.api.cfg
+        check(cfg == dataclasses.replace(launch_train.get_config(ARCH), n_layers=TRAIN_LAYERS),
+              f"not the full-width config cut to {TRAIN_LAYERS} layers: {cfg}")
+        state = make_train_state(s.api, s.opt, torch.Generator(device).manual_seed(0))
+        check(flatten(state)["opt/m/lm_head/w"].dtype == torch.float32
+              and flatten(state)["params/lm_head/w"].dtype == torch.bfloat16,
+              "want bf16 parameters and fp32 moments")
+        n_leaves = len(flatten(state))
+        state_bytes = sum(t.numel() * t.element_size() for t in flatten(state).values())
+        first = next(ShardedTokenDataset(s.data.connector, s.data.base, s.data.cfg).batches())
+        batch = {k: torch.tensor(v, device=device) for k, v in first.items()}
+        numerics = train_numerics(torch, s, state["params"], batch, fa_kernel, device)
+
+        # run 1: steps 1-4, checkpoints at 2 and 4, an injected failure before step 5
+        torch.cuda.reset_peak_memory_stats(device)
+        fa_kernel.launches = cs_kernel.launches = 0
+        try:
+            run_training(s.api, s.opt, s.loop, s.data, ckpt_mgr=s.ckpt, state=state)
+            check(False, "run 1 did not stop at the injected failure")
+        except InjectedFailure as exc:
+            run1 = exc.result
+        fa1, cs1 = fa_kernel.launches, cs_kernel.launches
+        saves1 = list(s.ckpt.timings)
+        check(run1.steps_run == FAIL_AT - 1 and int(state["opt"]["step"]) == FAIL_AT - 1,
+              f"run 1 ran {run1.steps_run} steps")
+        check(fa1 == 2 * cfg.n_layers * run1.steps_run,
+              f"{fa1} flash launches in {run1.steps_run} steps, want 2 x {cfg.n_layers} per step")
+        root = os.path.join(tmp, "ckpt", f"step_{FAIL_AT - 1}")
+        with open(os.path.join(root, "manifest.json"), "rb") as f:
+            manifest = json.loads(f.read())
+        check(len(saves1) == 2 and all(t["leaves"] == n_leaves for t in saves1),
+              f"saves of run 1: {saves1}")
+        check(all(t["verified"] == len(manifest["objects"]) for t in saves1),
+              f"post-write verification of run 1: {saves1}")
+        check(cs1 == sum(t["leaves"] + t["verified"] for t in saves1),
+              f"{cs1} checksum launches for {saves1}")
+
+        # the digests on disk, recomputed on the host by numpy
+        on_disk = {}
+        for path, meta in (("params/embed/table", manifest["objects"]["params/embed/table"]),
+                           ("opt/m/lm_head/w", manifest["objects"]["opt/m/lm_head/w"]),
+                           ("params/final_norm/scale",
+                            manifest["bundles"]["params/final_norm/scale"])):
+            dig = digest_ref(read_object(root, meta))
+            on_disk[path] = {"dtype": meta["dtype"], "manifest": meta["checksum"], "numpy": dig}
+            check(dig == meta["checksum"], f"{path} on disk: numpy {dig}, manifest {meta}")
+
+        # the restored state is byte for byte the state saved at step 4
+        t0 = time.perf_counter()
+        restored, step = s.ckpt.restore_latest(state)
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+        check(step == FAIL_AT - 1, f"latest checkpoint is step {step}")
+        for path, want in flatten(state).items():
+            got = flatten(restored)[path]
+            check(got.dtype == want.dtype and got.shape == want.shape and got.device == want.device
+                  and torch.equal(got.reshape(-1).view(torch.uint8),
+                                  want.reshape(-1).view(torch.uint8)),
+                  f"restored {path} differs from the state saved at step {step}")
+        del restored
+        torch.cuda.empty_cache()
+
+        # the restart, as after a preemption: fresh objects, restore, steps 5-6
+        s2 = launch_train.setup(launch_train.parse_args(argv))
+        fa_kernel.launches = cs_kernel.launches = 0
+        run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt)
+        fa2, cs2 = fa_kernel.launches, cs_kernel.launches
+        saves2 = list(s2.ckpt.timings)
+        peak_mem = torch.cuda.max_memory_allocated(device)
+        check(run2.restored_from == FAIL_AT - 1 and run2.steps_run == TRAIN_STEPS - FAIL_AT + 1,
+              f"restart: restored_from {run2.restored_from}, steps_run {run2.steps_run}")
+        check(fa2 == 2 * cfg.n_layers * run2.steps_run, f"{fa2} flash launches in the restart")
+        check(cs2 == n_leaves + sum(t["leaves"] + t["verified"] for t in saves2),
+              f"{cs2} checksum launches in the restart: {n_leaves} restored, {saves2}")
+        logged = run1.losses + run2.losses + run1.grad_norms + run2.grad_norms
+        check(len(run1.losses) + len(run2.losses) == TRAIN_STEPS
+              and all(math.isfinite(v) for _, v in logged), f"losses and grad norms {logged}")
+        check(abs(run1.losses[0][1] - numerics["loss_kernel"]) <= 1e-3 * numerics["loss_kernel"],
+              f"first step's loss {run1.losses[0][1]} vs {numerics['loss_kernel']}")
+
+        # a flipped byte in a written object fails the restore
+        latest = os.path.join(tmp, "ckpt", f"step_{TRAIN_STEPS}")
+        obj = os.path.join(latest, "params.embed.table.bin")
+        with open(obj, "r+b") as f:
+            f.seek(12345)
+            byte = f.read(1)
+            f.seek(12345)
+            f.write(bytes([byte[0] ^ 0x10]))
+        try:
+            restore_checkpoint(state, s2.ckpt.connector, "ckpt", TRAIN_STEPS)
+            check(False, "restore of a corrupted checkpoint did not raise")
+        except IntegrityError as exc:
+            corrupt = str(exc)
+        check("params/embed/table" in corrupt, f"corruption reported as {corrupt!r}")
+
+        step_s = [t for i, t in enumerate(run1.step_seconds + run2.step_seconds, start=1)
+                  if i % CKPT_EVERY]
+        med = statistics.median(step_s)
+        row = {"arch": ARCH, "reduced": {
+                   "n_layers": [launch_train.get_config(ARCH).n_layers, TRAIN_LAYERS],
+                   "why": "checkpoint bytes on disk (three checkpoints of the 2-layer "
+                          "state are 17 GB) and the smoke's time limit"},
+               "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+               "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+               "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "state_leaves": n_leaves,
+               "state_bytes": state_bytes,
+               "run1": {"steps_run": run1.steps_run, "losses": run1.losses,
+                        "grad_norms": run1.grad_norms, "flash_launches": fa1,
+                        "checksum_launches": cs1},
+               "restart": {"restored_from": run2.restored_from, "steps_run": run2.steps_run,
+                           "losses": run2.losses, "grad_norms": run2.grad_norms,
+                           "flash_launches": fa2, "checksum_launches": cs2},
+               "step_seconds": run1.step_seconds + run2.step_seconds,
+               "median_step_s_without_checkpoint": med,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+               "saves": saves1 + saves2, "restore_s": restore_s,
+               "max_memory_allocated": peak_mem, "digests_on_disk": on_disk,
+               "corruption": corrupt}
+        emit({"phase": "train", **row})
+        train_profile(torch, s2, state, batch)
+        return fa1 + fa2, cs1 + cs2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_profile(torch, s, state, batch):
+    """Where one training step's time goes: torch.profiler over one step
+    after a warm-up, device time per kernel name and under the step's
+    record_function ranges, and the plain attention backward timed alone."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.runtime.steps import make_train_step
+    step_fn = make_train_step(s.api, s.opt)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
+    kernels, spans = {}, {r: 0.0 for r in ranges}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            if ev.name in spans:
+                spans[ev.name] += us / 1e3
+            else:
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+    cpu_side = {}
+    for avg in prof.key_averages():
+        if avg.key in ranges:
+            cpu_side[avg.key] = getattr(avg, "device_time_total",
+                                        getattr(avg, "cuda_time_total", 0.0)) / 1e3
+    busy = sum(kernels.values())
+    # the attention of one layer at the step's shape: kernel forward, plain backward
+    cfg = s.api.cfg
+    case = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            True, cfg.swa_window)
+    q, k, v = (t.requires_grad_() for t in attn_inputs(case, torch.bfloat16, 11,
+                                                        s.api.device, torch))
+    do = torch.randn_like(q)
+    chunk = min(cfg.attn_chunk, TRAIN_SEQ)
+    fwd = lambda: FlashAttention.apply(q, k, v, True, cfg.swa_window, chunk)
+    o = fwd()
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, torch)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), torch)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    row = {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),
+           "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
+           "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},
+           "top_kernels_ms": {name[:80]: ms for name, ms in top}}
+    emit({"phase": "train_profile", **row})
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -260,9 +666,13 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
     from repro_torch.kernels import _build
+    from repro_torch.kernels.checksum import kernel as cs_kernel
+    from repro_torch.kernels.checksum import ops as cs_ops
+    from repro_torch.kernels.checksum import ref as cs_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -278,28 +688,39 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    logs = {src: _build.build(src) for src in _build.SOURCES}
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc per source
+        logs = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {src: [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln]
                     for src, log in logs.items()}})
 
+    cfg = serve.get_config(ARCH)
+    largest_leaf = ("largest training leaf, opt/m/lm_head/w", (cfg.d_model, cfg.vocab_size),
+                    torch.float32)
     try:
         worst = kernel_check(torch, fa_kernel, fa_ref, device)
+        cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
-        served, launches = serve_full_width(torch, serve, build, fa_kernel, device)
+        cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
+        _, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel, device)
+        train_fa, train_cs = train_full_width(torch, launch_train, fa_kernel, cs_kernel, device)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
-    main_row = times[0]
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "launches": launches, "max_abs_err": worst,
-        **{k: main_row[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-        "shapes": times}]})
+        "launches": serve_fa + train_fa,
+        "launches_by_path": {"serve": serve_fa, "train": train_fa}, "max_abs_err": worst,
+        **{k: times[0][k] for k in keys}, "shapes": times}, {
+        "name": "lanesum32", "route": "cuda",
+        "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
+        "replaces": "src/repro/kernels/checksum/kernel.py:32",
+        "launches": train_cs, "launches_by_path": {"serve": 0, "train": train_cs},
+        "max_abs_err": cs_worst, **{k: cs_times[0][k] for k in keys}, "shapes": cs_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

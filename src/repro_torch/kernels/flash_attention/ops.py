@@ -1,4 +1,4 @@
-"""Device dispatch for the flash-attention forward.
+"""Device dispatch for flash attention, with a gradient.
 
 ``flash_attention`` takes (B, S, H, dh) tensors as the reference's
 ``repro/kernels/flash_attention/ops.py::flash_attention`` does.  A CUDA
@@ -8,10 +8,18 @@ fails to build or launch raises.
 
 ``flash_attention_auto`` is what the model layer calls.  Unlike the
 reference, where ``cfg.attn_impl`` picks Pallas or chunked jnp, the
-device picks the path; ``cfg`` only sizes the CPU path's KV chunks.
+device picks the path; ``cfg`` sizes the KV chunks of the plain version.
+
+Both run through ``FlashAttention``, a ``torch.autograd.Function``.  Its
+forward is the dispatch above.  The reference has no backward kernel: it
+trains through ``jax.grad`` of ``chunked_attention``.  So the backward
+here recomputes ``chunked_attention`` under autograd from the saved q, k,
+v and backpropagates through it, on either device; it launches no kernel.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import kernel
 from .ref import chunked_attention
@@ -29,13 +37,33 @@ def _dispatch(q, k, v, *, causal, window, chunk):
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 
+class FlashAttention(torch.autograd.Function):
+    """Forward: kernel on CUDA, plain chunked on the CPU.  Backward: the
+    gradient of the plain chunked version (``chunk`` KV rows at a time)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = dict(causal=causal, window=window, chunk=chunk)
+        return _dispatch(q, k, v, **ctx.attn)
+
+    @staticmethod
+    def backward(ctx, do):
+        with torch.profiler.record_function("flash_attention/plain_backward"):
+            with torch.enable_grad():
+                q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+                o = chunked_attention(q, k, v, **ctx.attn)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) -> (B, Sq, H, dh)."""
-    return _dispatch(q, k, v, causal=causal, window=window, chunk=CPU_CHUNK)
+    return FlashAttention.apply(q, k, v, causal, window, CPU_CHUNK)
 
 
 def flash_attention_auto(q, k, v, *, causal, window, cfg):
     """Model-layer attention: the kernel on CUDA, and on the CPU the
     reference's default chunked path with its ``cfg.attn_chunk``."""
-    return _dispatch(q, k, v, causal=causal, window=window,
-                     chunk=min(cfg.attn_chunk, k.shape[1]))
+    return FlashAttention.apply(q, k, v, causal, window,
+                                min(cfg.attn_chunk, k.shape[1]))

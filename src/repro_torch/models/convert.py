@@ -47,3 +47,13 @@ def flatten(tree, prefix=()):
     for name, sub in items:
         out.update(flatten(sub, prefix + (name,)))
     return out
+
+
+def unflatten(like, flat, prefix=()):
+    """The tree of ``like``'s structure whose leaf at each path is
+    ``flat[path]``: the inverse of ``flatten``."""
+    if isinstance(like, dict):
+        return {k: unflatten(v, flat, prefix + (str(k),)) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [unflatten(v, flat, prefix + (str(i),)) for i, v in enumerate(like)]
+    return flat["/".join(prefix)]

@@ -1,4 +1,4 @@
-"""Layers of the dense serving path, ported from ``repro/models/layers.py``.
+"""Layers of the dense path, ported from ``repro/models/layers.py``.
 
 Plain functions on tensors.  Parameters are nested dicts whose path names
 and layouts are the reference's (linear weights ``(d_in, d_out)``), so a
@@ -203,3 +203,30 @@ def mlp_apply(p, x, cfg: ArchConfig):
     else:
         h = F.gelu(linear(p["wi"], x), approximate="tanh")  # jax.nn.gelu's default
     return linear(p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# sequence-chunked cross-entropy (never materializes full logits)
+# ---------------------------------------------------------------------------
+def chunked_xent(embed_table, x, labels, *, chunk: int):
+    """x: (B, S, d) final hidden; labels: (B, S) integer (-1 = ignore);
+    embed_table: (V, d).  Mean token xent over the valid labels, with the
+    logits of ``chunk`` positions at a time in fp32, so the (B, S, V)
+    logits tensor never exists.  The reference's ``z_weight`` and
+    ``unroll`` options are left out: its loss never sets them."""
+    B, S, D = x.shape
+    V = embed_table.shape[0]
+    if S % chunk:
+        raise ValueError(f"chunked_xent: S={S} is not a multiple of chunk={chunk}")
+    table = embed_table.to(x.dtype)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = 0
+    for start in range(0, S, chunk):
+        xi, li = x[:, start:start + chunk], labels[:, start:start + chunk]
+        logits = (xi @ table.T).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.clamp(0, V - 1).long()[..., None])[..., 0]
+        valid = li >= 0
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1)

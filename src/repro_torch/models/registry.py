@@ -1,8 +1,8 @@
 """Public model API of the port, after ``repro/models/registry.py``.
 
 ``build(cfg, device)`` returns a ``ModelApi`` whose functions run on
-``device`` (default ``cuda``).  This slice of the port serves the dense
-family; ``loss`` comes with the training slice.
+``device`` (default ``cuda``).  The port trains and serves the dense
+family so far.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     init: Callable          # generator -> params
+    loss: Callable          # (params, batch) -> (loss, metrics)
     prefill: Callable       # (params, batch, pad_to) -> (logits, cache, pos)
     decode: Callable        # (params, cache, token, pos) -> (logits, cache)
 
@@ -61,11 +62,14 @@ def build(cfg: ArchConfig, device="cuda") -> ModelApi:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         return tf.init_params(gen, cfg)
 
+    def loss(params, batch):
+        return tf.loss_fn(params, batch, cfg)
+
     def prefill(params, batch, pad_to=None):
         return tf.prefill(params, batch, cfg, pad_to=pad_to)
 
     def decode(params, cache, token, pos):
         return tf.decode_step(params, cache, token, pos, cfg)
 
-    return ModelApi(cfg=cfg, device=dev, init=init, prefill=prefill,
-                    decode=decode)
+    return ModelApi(cfg=cfg, device=dev, init=init, loss=loss,
+                    prefill=prefill, decode=decode)

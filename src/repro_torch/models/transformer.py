@@ -1,8 +1,11 @@
-"""Dense decoder stack for serving, ported from ``repro/models/transformer.py``.
+"""Dense decoder stack, ported from ``repro/models/transformer.py``.
 
 Blocks are stacked on a leading axis as in the reference (one layer per
 block for the dense family), and the reference's ``lax.scan`` over blocks
-is a Python loop over that axis.  The KV cache keeps the reference layout
+is a Python loop over that axis.  ``remat="block"`` (the reference's
+``jax.checkpoint`` in ``_scan_blocks``) is ``torch.utils.checkpoint`` around
+each block while autograd records; the backward then runs each block's
+forward once more.  The KV cache keeps the reference layout
 ``(n_blocks, n_attn, B, S_max, KV, dh)``.  The families with mamba, rwkv,
 MoE, encoder or vision layers come in later slices of the port.
 """
@@ -13,11 +16,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import ArchConfig
 from .layers import (_normal, attention_apply, attention_decode,
-                     attention_init, linear_init, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init)
+                     attention_init, chunked_xent, linear_init, mlp_apply,
+                     mlp_init, rmsnorm, rmsnorm_init)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -106,14 +110,33 @@ def _embed(params, tokens, cfg: ArchConfig):
 def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     """Returns (normed hidden (B, S, d), cache stacked over blocks)."""
     x = _embed(params, batch["tokens"], cfg)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
     for i in range(cfg.n_blocks):
-        x, cache = block_apply(_index(params["blocks"], i), x, cfg,
-                               causal=True, collect_cache=collect_cache)
+        bp = _index(params["blocks"], i)
+        if remat:
+            x, cache = checkpoint(block_apply, bp, x, cfg, causal=True,
+                                  collect_cache=collect_cache, use_reentrant=False)
+        else:
+            x, cache = block_apply(bp, x, cfg, causal=True,
+                                   collect_cache=collect_cache)
         caches.append(cache)
     caches = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
               if collect_cache else {})
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Mean next-token xent of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored).  Returns (loss, metrics) as the
+    reference does; the dense family has no MoE auxiliary loss, so
+    ``loss == xent`` and ``moe_aux`` is 0."""
+    x, _ = final_hidden(params, batch, cfg)
+    table = (params["embed"]["table"] if cfg.tie_embeddings
+             else params["lm_head"]["w"].T)
+    xent = chunked_xent(table, x, batch["labels"],
+                        chunk=min(cfg.logit_chunk, x.shape[1]))
+    return xent, {"xent": xent, "moe_aux": xent.new_zeros(())}
 
 
 def logits_last(params, x_last, cfg: ArchConfig):

@@ -1,12 +1,15 @@
-"""The port's serving path on the card runs its CUDA kernel once per layer.
+"""The port's kernels on the card: the serving path runs the flash kernel
+once per layer, and the lanesum32 kernel agrees bit for bit with its plain
+version.
 
 It needs a CUDA device and skips without one.  It imports no JAX, so it runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The kernel's own cases against its plain versions are checked on the card by
-``chip_smoke.py`` (``CHECK_CASES``).
+The flash kernel's own cases against its plain versions are checked on the
+card by ``chip_smoke.py`` (``CHECK_CASES``), and so are the checksum kernel's
+larger ones (above 2 GiB).
 """
 
 import dataclasses
@@ -16,6 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.checksum import kernel as cs_kernel
+from repro_torch.kernels.checksum.ops import checksum_digests
+from repro_torch.kernels.checksum.ref import digest_of, lanesum32_torch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.models.registry import build
 
@@ -43,3 +49,23 @@ def test_prefill_runs_kernel_per_layer(cuda):
         plain = build(dataclasses.replace(cfg, attn_impl="full"), cuda)
         want, _, _ = plain.prefill(params, {"tokens": tokens})
     torch.testing.assert_close(logits, want, rtol=5e-2, atol=5e-2)
+
+
+def test_checksum_kernel_matches_plain(cuda):
+    """Bit-exact on tail lengths, bf16, a 0-d tensor, a transposed tensor,
+    views at unaligned storage offsets and a buffer of several MB."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    big = torch.randn(3 * 2**20 + 7, generator=gen, device=cuda)
+    b8 = torch.randint(0, 256, (4099,), generator=gen, device=cuda, dtype=torch.uint8)
+    xs = [b8[:n] for n in (0, 1, 2, 3, 5, 7)]
+    xs += [b8[o:o + 1000] for o in (1, 2, 3, 4, 12)]  # every alignment mod 16
+    xs += [big.to(torch.bfloat16)[1:1002], torch.tensor(-7, dtype=torch.int32, device=cuda),
+           big[:999 * 37].reshape(999, 37).T, big]
+    before = cs_kernel.launches
+    got = checksum_digests(xs)
+    torch.cuda.synchronize()
+    assert cs_kernel.launches == before + len(xs)
+    assert got == [digest_of(*lanesum32_torch(x)) for x in xs]
+    flipped = big.clone()
+    flipped.view(torch.int32)[12345] ^= 1 << 7
+    assert checksum_digests([flipped]) != checksum_digests([big])

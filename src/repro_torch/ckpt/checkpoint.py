@@ -96,7 +96,10 @@ def snapshot(state, timings: dict | None = None) -> list[HostLeaf]:
     t0 = time.perf_counter()
     digests = _digests([t.device for t in tensors], tensors.__getitem__)
     t1 = time.perf_counter()  # digests read back: the device work is done
-    hosts = [t.reshape(-1).view(torch.uint8).cpu() for t in tensors]  # blocking copies
+    # blocking copies, made on the CPU too: there ``.cpu()`` would alias the
+    # live tensor, and the writer thread would write bytes from after the
+    # caller's next in-place update under the digest taken before it
+    hosts = [t.reshape(-1).view(torch.uint8).to("cpu", copy=True) for t in tensors]
     t2 = time.perf_counter()
     timings.update(leaves=len(leaves), digest_s=t1 - t0, d2h_s=t2 - t1,
                    bytes=sum(h.numel() for h in hosts))
@@ -210,11 +213,11 @@ def latest_step(connector: Connector, base: str,
 def restore_checkpoint(abstract_state, connector: Connector, base: str,
                        step: int | None = None,
                        credential: Credential | None = None,
-                       device=None, verify: bool = True):
+                       verify: bool = True):
     """Restores into the structure of ``abstract_state`` (a tree of tensors,
     ``meta`` ones included).  Each leaf takes the manifest's shape and
-    dtype and lands on ``device``, or else on its abstract leaf's device
-    (the CPU for ``meta``).  Returns (state, step)."""
+    dtype and lands on its abstract leaf's device (the CPU for ``meta``).
+    Returns (state, step)."""
     session = connector.start(credential)
     try:
         if step is None:
@@ -243,8 +246,8 @@ def restore_checkpoint(abstract_state, connector: Connector, base: str,
 
         loaded = {}
         for path, spec in flatten(abstract_state).items():
-            dev = torch.device(device) if device is not None else spec.device
-            loaded[path] = load(path, torch.device("cpu") if dev.type == "meta" else dev)
+            dev = torch.device("cpu") if spec.device.type == "meta" else spec.device
+            loaded[path] = load(path, dev)
         if verify:
             u8s = [u8 for u8, _ in loaded.values()]
             for path, dig in zip(loaded, _digests([u.device for u in u8s], u8s.__getitem__)):
@@ -317,10 +320,9 @@ class CheckpointManager:
             finally:
                 self.connector.destroy(session)
 
-    def restore_latest(self, abstract_state, device=None):
+    def restore_latest(self, abstract_state):
         step = latest_step(self.connector, self.base, self.credential)
         if step is None:
             return None, None
         return restore_checkpoint(abstract_state, self.connector, self.base,
-                                  step, credential=self.credential,
-                                  device=device)
+                                  step, credential=self.credential)

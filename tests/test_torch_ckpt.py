@@ -140,6 +140,24 @@ def test_checkpoint_manager_async_and_gc(tmp_path):
     assert all(t["leaves"] == 5 and t["objects"] + t["bundled"] == 5 for t in mgr.timings)
 
 
+def test_save_async_snapshot_survives_in_place_update(tmp_path):
+    """An 8 MB leaf is written as its own object by the writer thread; the
+    in-place update that follows ``save_async`` must not reach its bytes."""
+    mgr = CheckpointManager(PosixConnector(str(tmp_path)), "run", retain=1)
+    gen = torch.Generator().manual_seed(3)
+    state = {"big": torch.randn(1 << 21, generator=gen), "step": torch.tensor(5)}
+    saved = {k: v.clone() for k, v in state.items()}
+    mgr.save_async(state, 1)
+    state["big"].add_(1.0)
+    state["step"].add_(1)
+    mgr.wait()
+    assert mgr.timings[0]["objects"] == 1
+    restored, step = mgr.restore_latest(state)
+    assert step == 1
+    for k in saved:
+        _same_bytes(restored[k], saved[k])
+
+
 def test_jax_saves_port_restores(tmp_path):
     jstate = make_jax_state(seed=1)
     jax_save(jstate, JaxPosix(str(tmp_path)), "ckpt", step=5)

@@ -6,17 +6,29 @@
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch`` (``nvcc``,
    one process per source, all at once);
-3. holds each kernel against its plain PyTorch version on the card and
-   times both: flash attention (``kernel_check``, ``kernel_times``) and the
-   lanesum32 checksum (``checksum_check``, bit-exact, a buffer above 2 GiB
-   included; ``checksum_times``);
-4. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
-   a seed) through ``repro_torch.launch.serve``: 4 requests x 512-token
-   prompts to 32 tokens, then 1 request x a 5120-token prompt to 8 tokens,
-   and checks finite logits, 24 kernel launches per prefill, the same
-   greedy first token through the plain attention, and logits about as
-   close to an fp32 prefill as the plain bf16 prefill's;
-5. trains full-width h2o-danube-3-4b cut to 2 layers through
+3. holds each kernel against its plain PyTorch version on the card:
+   flash attention (``kernel_check``), the lanesum32 checksum
+   (``checksum_check``, bit-exact, a buffer above 2 GiB included) and the
+   ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
+   strong and scalar decay, the full-width rwkv6 head shape at T 300, 512
+   and 5120, y and the final state);
+4. times each kernel, its plain version and its bound at the main-path
+   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``);
+5. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
+   a seed) through ``repro_torch.launch.serve`` (``serve``): 4 requests x
+   512-token prompts to 32 tokens, then 1 request x a 5120-token prompt to
+   8 tokens, and checks finite logits, 24 flash launches per prefill, the
+   same greedy first token through the plain attention, and logits about
+   as close to an fp32 prefill as the plain bf16 prefill's;
+6. serves full-width rwkv6-7b (32 layers, bf16) the same two ways
+   (``serve_rwkv``): 32 scan launches per prefill and none per decode step,
+   no flash or checksum launch, finite logits; in fp32 compute the kernel
+   path's greedy first tokens equal to the plain scan's on every request and
+   its logits within FP32_LOGIT_LIMIT of them (a scan fed bf16 inputs must
+   land beyond it); bf16 logits as close to an fp32 prefill as the plain
+   bf16 prefill's; tokens/s, peak memory, and the device busy time and
+   idle share of a profiled prefill and decode step;
+7. trains full-width h2o-danube-3-4b cut to 2 layers through
    ``repro_torch.launch.train`` (batch 2 x 2048 tokens, bf16 parameters,
    fp32 AdamW moments, a corpus and checkpoints on the POSIX Connector in
    a temporary directory): a run stopped by an injected failure at step 5,
@@ -24,8 +36,8 @@
    gradients against plain-attention steps in bf16 and fp32, the kernel
    launches per step and per checkpoint, the restored bytes, the digests
    on disk against numpy, and that a flipped byte fails the restore;
-6. prints one JSON line of per-kernel launches, times and bounds, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+8. prints one JSON line of per-kernel launches (by path), times and
+   bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
 around it, it exits non-zero and prints no result.
@@ -70,6 +82,11 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
 LOGIT_SLACK = 1.5
+#: rwkv6-7b fp32 prefill, kernel scan against plain scan: largest logit
+#: difference allowed.  A sound kernel read 1.66e-4 (fp32 order of sums
+#: through 32 layers); the scan fed bf16 q, k, v (ssm_bf16_io) read 0.17 to
+#: 0.19 and must stay above it.
+FP32_LOGIT_LIMIT = 2e-3
 
 #: H100 SXM data sheet, dense: memory bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
@@ -83,6 +100,33 @@ CHECKSUM_CASES = [((1024,), "float32"), ((8, 128), "float32"), ((1000,), "float3
                   ((333,), "int32"), ((64, 9), "bfloat16"), ((5,), "float32")]
 #: words of the fp32 buffer above 2 GiB
 BIG_WORDS = 2**29 + 4099
+
+RWKV_ARCH = "rwkv6-7b"
+#: (requests, prompt tokens, generated tokens) served at full width and depth
+RWKV_WORKLOADS = [(4, 512, 32), (1, 5120, 8)]
+#: B, T, H, K, V, use_u, chunk, subchunk, kind: tests/test_kernels.py's
+#: SSM_CASES, its strong-decay case and a scalar decay (g constant over K),
+#: then the full-width rwkv6 head shape at a ragged T and at the two served
+#: shapes (the served rwkv6 layers call the scan with chunk 128, subchunk 16)
+SSM_SMALL_CASES = [
+    (2, 64, 3, 8, 16, False, 32, 8, "random"),
+    (1, 128, 2, 16, 16, False, 64, 16, "random"),
+    (2, 48, 2, 8, 8, True, 16, 8, "random"),
+    (1, 40, 4, 8, 8, True, 16, 4, "random"),
+    (1, 256, 1, 32, 32, False, 128, 16, "random"),
+    (1, 64, 2, 8, 8, True, 32, 8, "strong"),
+    (2, 48, 3, 8, 8, False, 16, 8, "scalar"),
+]
+SSM_WIDE_CASES = [(2, 300, 64, 64, 64, True, 128, 16, "random")]
+SSM_MAIN_CASES = [(4, 512, 64, 64, 64, True, 128, 16, "random"),
+                  (1, 5120, 64, 64, 64, True, 128, 16, "random")]
+#: fp32: rtol = atol as tests/test_kernels.py (3e-5; 1e-4 for strong decay)
+SSM_TOL = {"random": 3e-5, "scalar": 3e-5, "strong": 1e-4}
+#: bf16 y: two bf16 ulps (an ulp is at most 2^-7 of the value), since the
+#: kernel and the plain version each round their fp32 y to bf16 once
+SSM_BF16_RTOL = 2.0 ** -6
+#: H100 SXM data sheet: fp32 FLOP/s on the CUDA cores (no tensor cores)
+PEAK_FP32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -215,7 +259,7 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
     return out
 
 
-def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, device):
+def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device):
     """The serving path: full-width serving through repro_torch.launch.serve."""
     results, launches = [], 0
     for B, S, gen_len in WORKLOADS:
@@ -227,12 +271,13 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, device):
         check(cfg == serve.get_config(ARCH), f"not the full-width config: {cfg}")
         serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = cs_kernel.launches = 0
+        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
         res = serve.serve(api, params, tokens, gen_len)
         n = fa_kernel.launches
         launches += n
         check(n == cfg.n_layers, f"{n} kernel launches in one prefill, want {cfg.n_layers}")
         check(cs_kernel.launches == 0, "serving launched the checksum kernel")
+        check(ssm_kernel.launches == 0, "dense serving launched the scan kernel")
         logits = res["logits"]
         check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -370,6 +415,305 @@ def checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf):
     return out
 
 
+def ssm_inputs(case, dtype, seed, device, torch):
+    """q, k, v in ``dtype``; g, s0, u fp32; distributed as tests/test_kernels.py's
+    ``_ssm_inputs`` draws them (``strong``: log decays about -4.5 a step;
+    ``scalar``: one log decay per (b, t, h), broadcast over K)."""
+    B, T, H, K, V, use_u, _, _, kind = case
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v = randn(B, T, H, K) * 0.5, randn(B, T, H, K) * 0.5, randn(B, T, H, V) * 0.5
+    shift = -1.5 if kind == "strong" else 1.5
+    g = -torch.exp(randn(B, T, H, 1 if kind == "scalar" else K) - shift).expand(B, T, H, K)
+    s0, u = randn(B, H, K, V) * 0.3, randn(H, K) * 0.5
+    return q.to(dtype), k.to(dtype), v.to(dtype), g, s0, (u if use_u else None)
+
+
+def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
+    """The scan kernel (through ``ops.ssm_scan``) against the plain chunked
+    version and the step recurrence ``ssm_scan_ref`` on the card, y and the
+    final state.
+
+    The limit is ``atol + rtol * |want|``.  fp32: rtol = atol = SSM_TOL, the
+    reference's own (the step form and the chunked form add their fp32 terms
+    in other orders).  bf16 (same bf16 inputs, fp32 inside): y has rtol
+    SSM_BF16_RTOL for the two roundings to bf16, and an atol of 3e-5 times
+    the mean |want| of each (b, t, h) row for the fp32 order of sums, which
+    scales with the row's outputs; the fp32 state keeps 3e-5.  The served
+    shapes are checked with no initial state, as prefill calls them; the
+    others with one."""
+    rows, worst = [], 0.0
+    cases = [(c, "float32") for c in SSM_SMALL_CASES]
+    cases += [(c, dt) for c in SSM_WIDE_CASES + SSM_MAIN_CASES
+              for dt in ("float32", "bfloat16")]
+    for i, (case, dt) in enumerate(cases):
+        q, k, v, g, s0, u = ssm_inputs(case, getattr(torch, dt), 200 + i, device, torch)
+        if case in SSM_MAIN_CASES:
+            s0 = None
+        chunk, sub, kind = case[6:]
+        before = ssm_kernel.launches
+        # a scalar decay goes in as mamba's (B, T, H, 1), broadcast over K
+        y, s_fin = ssm_ops.ssm_scan(q, k, v, g[..., :1] if kind == "scalar" else g, u, s0,
+                                    chunk=chunk, subchunk=sub)
+        torch.cuda.synchronize()
+        check(ssm_kernel.launches == before + 1, f"ssm case {case}: the kernel did not launch")
+        check(y.dtype == q.dtype and s_fin.dtype == torch.float32, f"ssm case {case}: dtypes")
+        tol = SSM_TOL[kind]
+        row = {"case": list(case), "dtype": dt}
+        for name, (want_y, want_s) in (
+                ("plain", ssm_ref.ssm_scan_chunked(q, k, v, g, u, s0, chunk=chunk,
+                                                    subchunk=sub)),
+                ("ssm_scan_ref", ssm_ref.ssm_scan_ref(q, k, v, g, u, s0))):
+            for out, got, want in (("y", y.float(), want_y.float()), ("s_fin", s_fin, want_s)):
+                err = (got - want).abs()
+                if out == "y" and dt == "bfloat16":
+                    rtol = SSM_BF16_RTOL
+                    atol = 3e-5 * want.abs().mean(dim=-1, keepdim=True)
+                else:
+                    rtol, atol = tol, torch.full_like(want[..., :1], tol)
+                share = err / (atol + rtol * want.abs())
+                key = f"{out}_{name}"
+                row.update({f"max_abs_err_{key}": err.max().item(),
+                            f"max_err_share_of_limit_{key}": share.max().item()})
+                check(row[f"max_err_share_of_limit_{key}"] <= 1.0,
+                      f"ssm kernel vs {name}, {out}: case {case} {dt}: {row}")
+            worst = max(worst, row[f"max_abs_err_y_{name}"], row[f"max_abs_err_s_fin_{name}"])
+        rows.append(row)
+        del q, k, v, g, s0, u, y, s_fin
+    emit({"phase": "ssm_check", "ok": True, "cases": rows})
+    return worst
+
+
+def ssm_work(B, T, H, K, V, elem_bytes):
+    """(bytes, flops) the scan must move and do at prefill: q, k, v read and y
+    written in ``elem_bytes``, g read in fp32, u read, the final state written
+    in fp32; the step form's two multiply-adds per (t, k, v), 4 K V
+    operations per (token, head)."""
+    nbytes = (elem_bytes * B * T * H * (2 * K + 2 * V) + 4 * B * T * H * K
+              + 4 * H * K + 4 * B * H * K * V)
+    return nbytes, 4 * K * V * B * T * H
+
+
+def ssm_times(torch, ssm_kernel, ssm_ref, device):
+    """Kernel / plain times and the bound at the served shapes, in bf16 as
+    served.  No single PyTorch call computes this recurrence, so there is no
+    library time."""
+    out = []
+    for i, case in enumerate(SSM_MAIN_CASES):
+        B, T, H, K, V, _, chunk, sub, _ = case
+        q, k, v, g, _, u = ssm_inputs(case, torch.bfloat16, 300 + i, device, torch)
+        nbytes, flops = ssm_work(B, T, H, K, V, elem_bytes=2)
+        t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        ms = time_ms(lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g, u, None), torch)
+        bound = max(t_mem, t_ops)
+        out.append({"B": B, "T": T, "H": H, "K": K, "V": V, "dtype": "bfloat16",
+                    "bytes": nbytes, "flops": flops, "ms": ms, "kernel_ms": ms,
+                    "plain_ms": time_ms(lambda: ssm_ref.ssm_scan_chunked(
+                        q, k, v, g, u, None, chunk=chunk, subchunk=sub), torch, min_s=0.5),
+                    "bound_ms": bound, "bound_by": "bytes" if t_mem >= t_ops else "operations",
+                    "bytes_ms": t_mem, "operations_ms": t_ops, "library_ms": None,
+                    "share_of_bound": bound / ms})
+        del q, k, v, g, u
+    emit({"phase": "ssm_times", "rows": out})
+    return out
+
+
+def profile_device(torch, fn, spans=()):
+    """torch.profiler over one call of ``fn``: ({kernel name: device ms},
+    kernel launches, {span: device ms}, {span: device ms as key_averages
+    books it}) for the record_function ranges named in ``spans``, which are
+    kept out of the kernels.  The device's busy time is the sum of the
+    kernels'."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, launches, span_ms = {}, 0, {r: 0.0 for r in spans}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            if ev.name in span_ms:
+                span_ms[ev.name] += ms
+            else:
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
+                launches += 1
+    cpu_side = {avg.key: getattr(avg, "device_time_total",
+                                 getattr(avg, "cuda_time_total", 0.0)) / 1e3
+                for avg in prof.key_averages() if avg.key in span_ms}
+    return kernels, launches, span_ms, cpu_side
+
+
+def wall_ms(torch, fn, reps):
+    """Host wall ms of each of ``reps`` calls, each ended by a synchronise."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
+    """The rwkv6 serving path: full-width, full-depth rwkv6-7b through
+    repro_torch.launch.serve, its scan on the kernel; one profiled prefill
+    and decode step; then the same prefill in fp32 compute (the same bf16
+    weights) through the kernel, through the plain chunked scan swapped in
+    (as a test's monkeypatch would), and through the kernel with the
+    reference's ``ssm_bf16_io`` (q, k, v rounded to bf16 at the scan), and
+    the bf16 prefill through the plain scan.
+
+    In fp32 the kernel path must give the plain path's greedy first token on
+    every request and logits within FP32_LOGIT_LIMIT of it; the bf16-input
+    scan must land beyond that limit, so the limit tells a scan that loses
+    precision from a sound one.  In bf16 the logits must be within
+    LOGIT_SLACK of the plain bf16 prefill's error against fp32; the bf16
+    first tokens are printed, not compared: two sound bf16 paths differ by
+    bf16 noise through 32 random-weight layers, more than some requests'
+    top-2 margins."""
+    from repro_torch.models.convert import flatten
+    from repro_torch.runtime.steps import make_serve_step
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+
+    def plain_scan(q, k, v, log_decay, u=None, initial_state=None, *, chunk=128, subchunk=16,
+                   io_dtype=torch.float32, shard_constrain=False):
+        return ssm_ref.ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
+                                        chunk=chunk, subchunk=min(subchunk, chunk),
+                                        io_dtype=io_dtype, shard_constrain=shard_constrain)
+
+    results, launches = [], 0
+    for B, S, gen_len in RWKV_WORKLOADS:
+        args = serve.parse_args(["--arch", RWKV_ARCH, "--no-scaled-down", "--requests", str(B),
+                                 "--prompt-len", str(S), "--gen-len", str(gen_len),
+                                 "--device", str(device), "--seed", "0"])
+        api, params, tokens = serve.setup(args)
+        cfg = api.cfg
+        check(cfg == serve.get_config(RWKV_ARCH), f"not the full-width config: {cfg}")
+        n_params = sum(t.numel() for t in flatten(params).values())
+        serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
+        torch.cuda.reset_peak_memory_stats(device)
+        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
+        res = serve.serve(api, params, tokens, gen_len)
+        n = ssm_kernel.launches
+        launches += n
+        check(n == cfg.n_layers, f"{n} scan launches in one prefill and {gen_len - 1} decode "
+                                 f"steps, want {cfg.n_layers} (one per layer, none in decode)")
+        check(fa_kernel.launches == 0 and cs_kernel.launches == 0,
+              f"rwkv serving launched flash {fa_kernel.launches} / checksum "
+              f"{cs_kernel.launches} times")
+        logits = res["logits"]
+        check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        toks = res["tokens"]
+        check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size, f"generated tokens {tuple(toks.shape)}")
+        peak_mem = torch.cuda.max_memory_allocated(device)
+
+        # one prefill and one decode step: launches, wall time, device busy time
+        step = make_serve_step(api)
+
+        def prefill():
+            return api.prefill(params, {"tokens": tokens})
+
+        with torch.inference_mode():
+            ssm_kernel.launches = 0
+            lg, cache, _ = prefill()
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            n_pre = ssm_kernel.launches
+            step(params, cache, tok, S)
+            n_dec = ssm_kernel.launches - n_pre
+            check(n_pre == cfg.n_layers and n_dec == 0,
+                  f"scan launches: {n_pre} in a prefill, {n_dec} in a decode step")
+            pre_wall = statistics.median(wall_ms(torch, prefill, 3))
+            by_name, pre_n, _, _ = profile_device(torch, prefill)
+            pre_busy = sum(by_name.values())
+            pre_ssm = sum(ms for name, ms in by_name.items() if "ssm_scan_kernel" in name)
+            dec_wall = statistics.median(wall_ms(torch, lambda: step(params, cache, tok, S), 8))
+            by_name, dec_n, _, _ = profile_device(torch, lambda: step(params, cache, tok, S))
+            dec_busy = sum(by_name.values())
+            del lg, cache
+
+        # the same prefill in fp32 compute through the kernel (also with the
+        # scan's inputs rounded to bf16), then through the plain scan in bf16
+        # and in fp32
+        exact = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+        bf16_io = build(dataclasses.replace(cfg, compute_dtype="float32", ssm_bf16_io=True),
+                        device)
+        ssm_kernel.launches = 0
+        with torch.inference_mode():
+            logits_exact_kernel, _, _ = exact.prefill(params, {"tokens": tokens})
+            logits_bf16_io, _, _ = bf16_io.prefill(params, {"tokens": tokens})
+        check(ssm_kernel.launches == 2 * cfg.n_layers,
+              f"{ssm_kernel.launches} scan launches in two fp32 prefills")
+        kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, plain_scan
+        ssm_kernel.launches = 0
+        try:
+            with torch.inference_mode():
+                logits_plain, _, _ = api.prefill(params, {"tokens": tokens})
+                logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
+        finally:
+            ssm_ops.ssm_scan = kernel_scan
+        check(ssm_kernel.launches == 0, "the plain-scan prefill launched the kernel")
+        diff = (logits - logits_plain).abs().max().item()
+        err = (logits - logits_exact).abs().max().item()
+        err_plain = (logits_plain - logits_exact).abs().max().item()
+        diff32 = (logits_exact_kernel - logits_exact).abs().max().item()
+        diff_bf16_io = (logits_bf16_io - logits_exact).abs().max().item()
+        first, first_plain = logits[:, -1].argmax(-1), logits_plain[:, -1].argmax(-1)
+        first32, first32_plain = (logits_exact_kernel[:, -1].argmax(-1),
+                                  logits_exact[:, -1].argmax(-1))
+        top2_32 = logits_exact[:, -1].topk(2, dim=-1).values
+        row = {"arch": RWKV_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "heads": cfg.d_model // cfg.ssm.head_dim, "head_dim": cfg.ssm.head_dim,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+               "requests": B, "prompt_len": S, "gen_len": gen_len,
+               "kernel_launches": n, "kernel_launches_per_prefill": n_pre,
+               "kernel_launches_per_decode_step": n_dec,
+               "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
+               "max_memory_allocated": peak_mem,
+               "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
+                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   "ssm_kernel_ms": pre_ssm,
+                                   "ssm_kernel_share_of_busy": pre_ssm / pre_busy},
+               "decode_step_profile": {"wall_ms_unprofiled": dec_wall,
+                                       "device_busy_ms": dec_busy,
+                                       "idle_share": 1.0 - dec_busy / dec_wall,
+                                       "kernels": dec_n},
+               "fp32_max_abs_logit_diff_kernel_vs_plain": diff32,
+               "fp32_logit_limit": FP32_LOGIT_LIMIT,
+               "fp32_share_of_limit": diff32 / FP32_LOGIT_LIMIT,
+               "fp32_bf16_io_max_abs_logit_diff_vs_plain": diff_bf16_io,
+               "fp32_first_tokens": first32.tolist(),
+               "fp32_first_tokens_plain": first32_plain.tolist(),
+               "fp32_top2_margin_plain": (top2_32[:, 0] - top2_32[:, 1]).tolist(),
+               "max_abs_logit_diff_vs_plain": diff,
+               "max_abs_logit_err_vs_fp32": err,
+               "plain_max_abs_logit_err_vs_fp32": err_plain,
+               "logit_err_ratio": err / err_plain,
+               "bf16_first_tokens": first.tolist(),
+               "bf16_first_tokens_plain": first_plain.tolist(),
+               "sample_tokens": toks[0, :8].tolist()}
+        emit({"phase": "serve_rwkv", **row})
+        check(bool((first32 == first32_plain).all()),
+              f"fp32 greedy first tokens {first32.tolist()}, plain {first32_plain.tolist()}")
+        check(diff32 <= FP32_LOGIT_LIMIT,
+              f"fp32 logits {diff32} from the plain scan's, limit {FP32_LOGIT_LIMIT}")
+        check(diff_bf16_io > FP32_LOGIT_LIMIT,
+              f"the bf16-input scan's fp32 logits are {diff_bf16_io} from the plain "
+              f"scan's, within the limit {FP32_LOGIT_LIMIT}: the limit tells nothing apart")
+        check(err <= LOGIT_SLACK * err_plain,
+              f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
+        results.append(row)
+        del api, params, tokens, res, logits, logits_plain, logits_exact, exact, bf16_io
+        del logits_exact_kernel, logits_bf16_io
+        torch.cuda.empty_cache()
+    return results, launches
+
+
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -452,7 +796,7 @@ def read_object(root, meta):
         return f.read(meta["length"]) if "length" in meta else f.read()
 
 
-def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
+def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device):
     """The training path: full-width training through repro_torch.launch.train,
     an injected failure, a restart, and the checkpoints' integrity."""
     from repro_torch.ckpt.checkpoint import restore_checkpoint
@@ -487,13 +831,14 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
 
         # run 1: steps 1-4, checkpoints at 2 and 4, an injected failure before step 5
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = cs_kernel.launches = 0
+        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
         try:
             run_training(s.api, s.opt, s.loop, s.data, ckpt_mgr=s.ckpt, state=state)
             check(False, "run 1 did not stop at the injected failure")
         except InjectedFailure as exc:
             run1 = exc.result
         fa1, cs1 = fa_kernel.launches, cs_kernel.launches
+        check(ssm_kernel.launches == 0, "dense training launched the scan kernel")
         saves1 = list(s.ckpt.timings)
         check(run1.steps_run == FAIL_AT - 1 and int(state["opt"]["step"]) == FAIL_AT - 1,
               f"run 1 ran {run1.steps_run} steps")
@@ -536,9 +881,10 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, device):
 
         # the restart, as after a preemption: fresh objects, restore, steps 5-6
         s2 = launch_train.setup(launch_train.parse_args(argv))
-        fa_kernel.launches = cs_kernel.launches = 0
+        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
         run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt)
         fa2, cs2 = fa_kernel.launches, cs_kernel.launches
+        check(ssm_kernel.launches == 0, "the restart launched the scan kernel")
         saves2 = list(s2.ckpt.timings)
         peak_mem = torch.cuda.max_memory_allocated(device)
         check(run2.restored_from == FAIL_AT - 1 and run2.steps_run == TRAIN_STEPS - FAIL_AT + 1,
@@ -607,31 +953,11 @@ def train_profile(torch, s, state, batch):
     step_fn = make_train_step(s.api, s.opt)
     step_fn(state, batch)
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(WARM_STEPS):
-        t0 = time.perf_counter()
-        step_fn(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
     wall = statistics.median(walls)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step_fn(state, batch)
-        torch.cuda.synchronize()
     ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
-    kernels, spans = {}, {r: 0.0 for r in ranges}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = ev.time_range.elapsed_us()
-            if ev.name in spans:
-                spans[ev.name] += us / 1e3
-            else:
-                kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
-    cpu_side = {}
-    for avg in prof.key_averages():
-        if avg.key in ranges:
-            cpu_side[avg.key] = getattr(avg, "device_time_total",
-                                        getattr(avg, "cuda_time_total", 0.0)) / 1e3
+    kernels, n_launches, spans, cpu_side = profile_device(
+        torch, lambda: step_fn(state, batch), ranges)
     busy = sum(kernels.values())
     # the attention of one layer at the step's shape: kernel forward, plain backward
     cfg = s.api.cfg
@@ -652,6 +978,7 @@ def train_profile(torch, s, state, batch):
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
            "wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),
+           "kernel_launches": n_launches,
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
            "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},
            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
@@ -676,6 +1003,9 @@ def main() -> int:
     from repro_torch.kernels.checksum import ref as cs_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build
@@ -706,10 +1036,16 @@ def main() -> int:
     try:
         worst = kernel_check(torch, fa_kernel, fa_ref, device)
         cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
+        ssm_worst = ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device)
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
-        _, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel, device)
-        train_fa, train_cs = train_full_width(torch, launch_train, fa_kernel, cs_kernel, device)
+        s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
+        _, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel,
+                                       device)
+        _, rwkv_ssm = serve_rwkv(torch, serve, build, (fa_kernel, cs_kernel, ssm_kernel),
+                                 ssm_ops, ssm_ref, device)
+        train_fa, train_cs = train_full_width(torch, launch_train, fa_kernel, cs_kernel,
+                                              ssm_kernel, device)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
@@ -719,13 +1055,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "launches": serve_fa + train_fa,
-        "launches_by_path": {"serve": serve_fa, "train": train_fa}, "max_abs_err": worst,
-        **{k: times[0][k] for k in keys}, "shapes": times}, {
+        "launches_by_path": {"serve": serve_fa, "serve_rwkv": 0, "train": train_fa},
+        "max_abs_err": worst, **{k: times[0][k] for k in keys}, "shapes": times}, {
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
         "replaces": "src/repro/kernels/checksum/kernel.py:32",
-        "launches": train_cs, "launches_by_path": {"serve": 0, "train": train_cs},
-        "max_abs_err": cs_worst, **{k: cs_times[0][k] for k in keys}, "shapes": cs_times}]})
+        "launches": train_cs,
+        "launches_by_path": {"serve": 0, "serve_rwkv": 0, "train": train_cs},
+        "max_abs_err": cs_worst, **{k: cs_times[0][k] for k in keys}, "shapes": cs_times}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
+        "launches": rwkv_ssm,
+        "launches_by_path": {"serve": 0, "serve_rwkv": rwkv_ssm, "train": 0},
+        "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys}, "shapes": s_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -21,7 +21,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: every kernel source of the port, relative to this package
-SOURCES = ["flash_attention/csrc/flash_attention.cu", "checksum/csrc/checksum.cu"]
+SOURCES = ["flash_attention/csrc/flash_attention.cu", "checksum/csrc/checksum.cu",
+           "ssm_scan/csrc/ssm_scan.cu"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

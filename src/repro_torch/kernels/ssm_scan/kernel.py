@@ -1,0 +1,80 @@
+"""ctypes binding of the Hopper gated-linear-recurrence kernel.
+
+The kernel (``csrc/ssm_scan.cu``) replaces the TPU kernel
+``repro/kernels/ssm_scan/kernel.py::_ssm_kernel``.  It reads contiguous
+(B, T, H, K) / (B, T, H, V) tensors in place and masks a ragged T itself,
+so no padding pass runs in device memory.  It launches on the current
+stream and does not synchronise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+SOURCE = "ssm_scan/csrc/ssm_scan.cu"
+MAX_K = 128
+
+#: launches of the kernel since the last reset; only a launch adds to it
+launches = 0
+
+
+def _fn():
+    fn = _build.load(SOURCE).repro_ssm_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _vec(t: torch.Tensor, row: int) -> int:
+    """1 if every row of ``row`` elements of the contiguous ``t`` starts on
+    a 16-byte boundary and fills whole 16-byte pieces."""
+    return int(t.data_ptr() % 16 == 0 and (row * t.element_size()) % 16 == 0)
+
+
+def ssm_scan_fwd(q, k, v, g, u=None, s0=None):
+    """q, k, g: (B, T, H, K); v: (B, T, H, V); u: (H, K) or None; s0:
+    (B, H, K, V) or None; all on one CUDA device.  q, k, v share one dtype
+    (float32 or bfloat16); g, u and s0 are read as float32.  Returns
+    (y (B, T, H, V) in q's dtype, s_fin (B, H, K, V) float32)."""
+    global launches
+    dev = q.device
+    if not q.is_cuda or any(t.device != dev for t in (k, v, g, u, s0) if t is not None):
+        raise ValueError("ssm_scan_fwd: all tensors must be on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"ssm_scan_fwd: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
+                        "want one of float32, bfloat16")
+    if q.dim() != 4 or k.shape != q.shape or g.shape != q.shape or v.dim() != 4:
+        raise ValueError(f"ssm_scan_fwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, g {tuple(g.shape)}")
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    if tuple(v.shape[:3]) != (B, T, H) or not 1 <= K <= MAX_K or V < 1:
+        raise ValueError(f"ssm_scan_fwd: v {tuple(v.shape)} vs q {tuple(q.shape)} "
+                         f"(need K <= {MAX_K})")
+    if u is not None and tuple(u.shape) != (H, K):
+        raise ValueError(f"ssm_scan_fwd: u {tuple(u.shape)}, want {(H, K)}")
+    if s0 is not None and tuple(s0.shape) != (B, H, K, V):
+        raise ValueError(f"ssm_scan_fwd: initial state {tuple(s0.shape)}, want {(B, H, K, V)}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    g = g.float().contiguous()
+    u = None if u is None else u.float().contiguous()
+    s0 = None if s0 is None else s0.float().contiguous()
+    y = torch.empty((B, T, H, V), dtype=q.dtype, device=dev)
+    s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    if B * H == 0:
+        return y, s_fin
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                    None if u is None else u.data_ptr(),
+                    None if s0 is None else s0.data_ptr(),
+                    y.data_ptr(), s_fin.data_ptr(), int(q.dtype == torch.bfloat16),
+                    B, T, H, K, V, _vec(q, K) & _vec(k, K), _vec(g, K), _vec(v, V), stream)
+    if err:
+        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
+    launches += 1
+    return y, s_fin

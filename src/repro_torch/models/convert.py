@@ -13,24 +13,25 @@ import numpy as np
 import torch
 
 
-def _leaf(arr, device, dtype):
+def _leaf(arr, device):
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device=device, dtype=dtype or t.dtype)
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_jax(tree, device, dtype=None):
+def params_from_jax(tree, device):
     """Nested dict/list of numpy arrays -> the same of torch tensors on
-    ``device`` (cast to ``dtype`` where given)."""
+    ``device``, byte for byte, each leaf in its own dtype: the fp32 leaves
+    of a bf16 tree (rwkv6's ``u`` and ``decay_bias``) stay fp32.  There is
+    no cast option, since one dtype would change what a model keeps in
+    fp32."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, device, dtype) for v in tree]
-    return _leaf(tree, device, dtype)
+        return [params_from_jax(v, device) for v in tree]
+    return _leaf(tree, device)
 
 
 def flatten(tree, prefix=()):

@@ -2,7 +2,7 @@
 
 ``build(cfg, device)`` returns a ``ModelApi`` whose functions run on
 ``device`` (default ``cuda``).  The port trains and serves the dense
-family so far.
+family and serves rwkv6 (the ``ssm`` family) so far.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ from .common import ArchConfig
 #: families still to port, with the ROADMAP.md item that ports each
 PENDING_FAMILIES = {
     "moe": "ROADMAP A10 (MoE)",
-    "ssm": "ROADMAP A9 (SSM slice)",
-    "hybrid": "ROADMAP A9-A10 (SSM slice, then MoE)",
+    "hybrid": "ROADMAP A10 (MoE, with the mamba mixer)",
     "audio": "ROADMAP A11 (encoder-decoder and VLM)",
     "vlm": "ROADMAP A11 (encoder-decoder and VLM)",
 }

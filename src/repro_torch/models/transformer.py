@@ -1,13 +1,18 @@
-"""Dense decoder stack, ported from ``repro/models/transformer.py``.
+"""Decoder stack, ported from ``repro/models/transformer.py``.
 
-Blocks are stacked on a leading axis as in the reference (one layer per
-block for the dense family), and the reference's ``lax.scan`` over blocks
-is a Python loop over that axis.  ``remat="block"`` (the reference's
-``jax.checkpoint`` in ``_scan_blocks``) is ``torch.utils.checkpoint`` around
-each block while autograd records; the backward then runs each block's
-forward once more.  The KV cache keeps the reference layout
-``(n_blocks, n_attn, B, S_max, KV, dh)``.  The families with mamba, rwkv,
-MoE, encoder or vision layers come in later slices of the port.
+A model is a stack of blocks, each a list of (mixer, ffn) layers as the
+reference's ``_layer_kinds`` gives them.  Ported so far: the dense family
+(attention + dense MLP) and rwkv6 (time mix + channel mix).  The mamba
+mixer, MoE and cross-attention raise in ``_layer_kinds`` and name their
+ROADMAP item (``registry.build`` refuses those families, and VLMs, first).
+Blocks are stacked on a leading axis as in the reference, and the
+reference's ``lax.scan`` over blocks is a Python loop over that axis.
+``remat="block"`` (the reference's ``jax.checkpoint`` in ``_scan_blocks``)
+is ``torch.utils.checkpoint`` around each block while autograd records;
+the backward then runs each block's forward once more.  The decode caches
+keep the reference layouts, ``(n_blocks, n_attn, B, S_max, KV, dh)`` for
+attention and ``(n_blocks, n_rwkv, B, ...)`` for rwkv, and are updated in
+place.
 """
 
 from __future__ import annotations
@@ -18,10 +23,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.ssm_scan import ops as ssm_ops
 from .common import ArchConfig
 from .layers import (_normal, attention_apply, attention_decode,
-                     attention_init, chunked_xent, linear_init, mlp_apply,
-                     mlp_init, rmsnorm, rmsnorm_init)
+                     attention_init, chunked_xent, linear, linear_init,
+                     mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
+from .ssm import ssm_decode_step
+
+#: layer kinds still to port, with the ROADMAP.md item that ports each
+PENDING_KINDS = {"mamba": "ROADMAP A10 (MoE, with the mamba mixer)",
+                 "moe": "ROADMAP A10 (MoE, with the mamba mixer)",
+                 "cross-attention": "ROADMAP A11 (encoder-decoder and VLM)"}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -43,42 +55,215 @@ def _index(tree, i):
 
 
 # ===========================================================================
-# block = attention + dense FFN
+# rwkv6 mixer + channel mix ("Finch": data-dependent decay)
 # ===========================================================================
+def _rwkv_dims(cfg: ArchConfig):
+    dh = cfg.ssm.head_dim
+    return cfg.d_model // dh, dh
+
+
+def rwkv_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    d = cfg.d_model
+    H, dh = _rwkv_dims(cfg)
+    r = cfg.ssm.decay_rank
+    dev = gen.device
+    p = {
+        "wr": linear_init(gen, d, d, dtype),
+        "wk": linear_init(gen, d, d, dtype),
+        "wv": linear_init(gen, d, d, dtype),
+        "wg": linear_init(gen, d, d, dtype),
+        "out": linear_init(gen, d, d, dtype,
+                           scale=1.0 / math.sqrt(d * 2 * cfg.n_layers)),
+        "decay_w1": _normal(gen, (d, r), dtype, 1.0 / math.sqrt(d)),
+        "decay_w2": _normal(gen, (r, d), dtype, 1.0 / math.sqrt(r)),
+        "decay_bias": torch.full((d,), -2.0, dtype=torch.float32, device=dev),
+        "u": _normal(gen, (H, dh), torch.float32, 0.5),
+        "ln_y": rmsnorm_init(d, dtype, dev),
+    }
+    for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
+        p[name] = torch.full((d,), 0.5, dtype=dtype, device=dev)
+    return p
+
+
+def _token_shift(x, prev=None):
+    """x_{t-1} stream; prev: (B, 1, d) carried across segments."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
+    return torch.cat([prev, x], dim=1)[:, :x.shape[1]]
+
+
+def _mix(x, xs, mu):
+    return x + (xs - x) * mu.to(x.dtype)
+
+
+def _log_decay(p, x, xs):
+    """The data-dependent decay (the Finch contribution): the LoRA in x's
+    dtype, then fp32 for ``-exp(decay_bias + lora)`` (< 0)."""
+    xw = _mix(x, xs, p["mu_w"])
+    lora = torch.tanh(xw @ p["decay_w1"].to(x.dtype)) @ p["decay_w2"].to(x.dtype)
+    return -torch.exp(p["decay_bias"] + lora.float())
+
+
+def rwkv_time_mix(p, x, cfg: ArchConfig, state=None):
+    """Returns (y, (ssm_state, last_x)).  x: (B, S, d).  The recurrence runs
+    through ``kernels.ssm_scan.ops.ssm_scan``: the Hopper kernel on CUDA,
+    the plain chunked form on the CPU.  (The op is looked up at call time:
+    the kernel package imports ``models.ssm``, so a name bound at import
+    would be a cycle.)"""
+    B, S, d = x.shape
+    H, dh = _rwkv_dims(cfg)
+    prev = None if state is None else state[1]
+    xs = _token_shift(x, prev)
+    r = linear(p["wr"], _mix(x, xs, p["mu_r"])).reshape(B, S, H, dh)
+    k = linear(p["wk"], _mix(x, xs, p["mu_k"])).reshape(B, S, H, dh)
+    v = linear(p["wv"], _mix(x, xs, p["mu_v"])).reshape(B, S, H, dh)
+    gate = F.silu(linear(p["wg"], _mix(x, xs, p["mu_g"])))
+    log_w = _log_decay(p, x, xs).reshape(B, S, H, dh)
+    ssm_in = None if state is None else state[0]
+    y, ssm_state = ssm_ops.ssm_scan(r, k, v, log_w, u=p["u"], initial_state=ssm_in,
+                                    chunk=min(cfg.ssm.chunk, S),
+                                    subchunk=min(cfg.ssm.subchunk, S),
+                                    shard_constrain=cfg.ssm_shard_constraints,
+                                    io_dtype=torch.bfloat16 if cfg.ssm_bf16_io
+                                    else torch.float32)
+    y = y.reshape(B, S, d)
+    y = rmsnorm(p["ln_y"], y, cfg.norm_eps) * gate  # ln_y over all of d
+    return linear(p["out"], y), (ssm_state, x[:, -1:, :])
+
+
+def rwkv_time_mix_decode(p, x, cfg: ArchConfig, state):
+    """One token, x: (B, 1, d); state: (ssm (B, H, dh, dh) fp32, last x).
+    Returns (y, (new ssm state, x)); the plain step, as in the reference."""
+    B, _, d = x.shape
+    H, dh = _rwkv_dims(cfg)
+    ssm_state, xs = state
+    r = linear(p["wr"], _mix(x, xs, p["mu_r"])).reshape(B, H, dh)
+    k = linear(p["wk"], _mix(x, xs, p["mu_k"])).reshape(B, H, dh)
+    v = linear(p["wv"], _mix(x, xs, p["mu_v"])).reshape(B, H, dh)
+    gate = F.silu(linear(p["wg"], _mix(x, xs, p["mu_g"])))
+    log_w = _log_decay(p, x, xs).reshape(B, H, dh)
+    y, ssm_new = ssm_decode_step(r, k, v, log_w, ssm_state, u=p["u"])
+    y = y.reshape(B, 1, d)
+    y = rmsnorm(p["ln_y"], y, cfg.norm_eps) * gate
+    return linear(p["out"], y), (ssm_new, x)
+
+
+def cmix_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wk": linear_init(gen, d, f, dtype),
+        "wv": linear_init(gen, f, d, dtype,
+                          scale=1.0 / math.sqrt(f * 2 * cfg.n_layers)),
+        "wr": linear_init(gen, d, d, dtype),
+        "mu_k": torch.full((d,), 0.5, dtype=dtype, device=gen.device),
+        "mu_r": torch.full((d,), 0.5, dtype=dtype, device=gen.device),
+    }
+
+
+def cmix_apply(p, x, cfg: ArchConfig, state=None):
+    """rwkv channel mix; returns (y, last x).  ``state``: (B, 1, d) or None.
+    (The reference pins the hidden's sharding under ``ssm_shard_constraints``;
+    the time mix before it refuses that toggle, ROADMAP A12.)"""
+    xs = _token_shift(x, state)
+    kk = torch.square(F.relu(linear(p["wk"], _mix(x, xs, p["mu_k"]))))
+    rr = torch.sigmoid(linear(p["wr"], _mix(x, xs, p["mu_r"])))
+    return rr * linear(p["wv"], kk), x[:, -1:, :]
+
+
+# ===========================================================================
+# block = a list of (mixer, ffn) layers
+# ===========================================================================
+def _layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """[(mixer, ffn)] per layer inside one block: ("attn", "dense") or
+    ("rwkv", "cmix").  The kinds still to port raise here, naming their
+    ROADMAP item, so the functions below see only ported kinds."""
+    out = []
+    for i, mixer in enumerate(cfg.block_pattern()):
+        if mixer == "rwkv":
+            out.append(("rwkv", "cmix"))
+        else:
+            out.append((mixer, cfg.ffn_kind(i)))
+    pending = [k for k in ("cross-attention",) if cfg.is_encdec] + \
+        [k for kinds in out for k in kinds if k in PENDING_KINDS]
+    if pending:
+        raise NotImplementedError(f"{cfg.arch_id}: {pending[0]} layers are not ported "
+                                  f"yet; see {PENDING_KINDS[pending[0]]}")
+    return out
+
+
 def block_init(gen: torch.Generator, cfg: ArchConfig, dtype):
-    layer = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
-             "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-             "attn": attention_init(gen, cfg, dtype),
-             "mlp": mlp_init(gen, cfg, dtype)}
-    return {"layers": [layer]}
+    layers = []
+    for mixer, ffn in _layer_kinds(cfg):
+        layer = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
+                 "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device)}
+        if mixer == "attn":
+            layer["attn"] = attention_init(gen, cfg, dtype)
+        else:
+            layer["rwkv"] = rwkv_init(gen, cfg, dtype)
+        if ffn == "dense":
+            layer["mlp"] = mlp_init(gen, cfg, dtype)
+        else:
+            layer["cmix"] = cmix_init(gen, cfg, dtype)
+        layers.append(layer)
+    return {"layers": layers}
 
 
 def block_apply(bp, x, cfg: ArchConfig, *, causal=True, collect_cache=False):
-    """Full-sequence pass through one block.  Returns (x, cache)."""
-    cache = {"attn_k": [], "attn_v": []}
-    for layer in bp["layers"]:
+    """Full-sequence pass through one block.  Returns (x, cache), the cache
+    holding only the kinds this block has."""
+    cache = {"attn_k": [], "attn_v": [], "ssm": [], "shift_t": [], "shift_c": []}
+    for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-        out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
-        if collect_cache:
-            cache["attn_k"].append(k)
-            cache["attn_v"].append(v)
+        if mixer == "attn":
+            out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
+            if collect_cache:
+                cache["attn_k"].append(k)
+                cache["attn_v"].append(v)
+        else:
+            out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
+            if collect_cache:
+                cache["ssm"].append(s_ssm)
+                cache["shift_t"].append(last)
         x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(layer["mlp"], h, cfg)
-    return x, ({k: torch.stack(v) for k, v in cache.items()}
-               if collect_cache else {})
+        if ffn == "dense":
+            out = mlp_apply(layer["mlp"], h, cfg)
+        else:
+            out, last_c = cmix_apply(layer["cmix"], h, cfg)
+            if collect_cache:
+                cache["shift_c"].append(last_c)
+        x = x + out
+    return x, {k: torch.stack(v) for k, v in cache.items() if v}
 
 
 def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
-    """One-token pass; ``cache`` holds this block's (n_attn, B, S_max, KV,
-    dh) tensors and is updated in place."""
-    for j, layer in enumerate(bp["layers"]):
+    """One-token pass; ``cache`` holds this block's stacked state tensors
+    ((n_attn, B, S_max, KV, dh) KV caches; (n_rwkv, B, ...) rwkv states)
+    and is updated in place."""
+    n = {"attn": 0, "rwkv": 0}
+    for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-        out, _, _ = attention_decode(layer["attn"], h, cache["attn_k"][j],
-                                     cache["attn_v"][j], pos, cfg)
+        if mixer == "attn":
+            j = n["attn"]
+            out, _, _ = attention_decode(layer["attn"], h, cache["attn_k"][j],
+                                         cache["attn_v"][j], pos, cfg)
+            n["attn"] += 1
+        else:
+            j = n["rwkv"]
+            out, (s_ssm, last) = rwkv_time_mix_decode(
+                layer["rwkv"], h, cfg, (cache["ssm"][j], cache["shift_t"][j]))
+            cache["ssm"][j].copy_(s_ssm)
+            cache["shift_t"][j].copy_(last)
         x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(layer["mlp"], h, cfg)
+        if ffn == "dense":
+            out = mlp_apply(layer["mlp"], h, cfg)
+        else:
+            j = n["rwkv"]
+            out, last_c = cmix_apply(layer["cmix"], h, cfg, state=cache["shift_c"][j])
+            cache["shift_c"][j].copy_(last_c)
+            n["rwkv"] += 1
+        x = x + out
     return x, cache
 
 
@@ -129,7 +314,7 @@ def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
 def loss_fn(params, batch, cfg: ArchConfig):
     """Mean next-token xent of ``batch["tokens"]`` against
     ``batch["labels"]`` (-1 ignored).  Returns (loss, metrics) as the
-    reference does; the dense family has no MoE auxiliary loss, so
+    reference does; the ported families have no MoE auxiliary loss, so
     ``loss == xent`` and ``moe_aux`` is 0."""
     x, _ = final_hidden(params, batch, cfg)
     table = (params["embed"]["table"] if cfg.tie_embeddings
@@ -152,7 +337,7 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     ``pad_to`` sizes the attention KV cache for subsequent decode."""
     x, caches = final_hidden(params, batch, cfg, collect_cache=True)
     S = batch["tokens"].shape[1]
-    if pad_to is not None and pad_to > S:
+    if pad_to is not None and pad_to > S and "attn_k" in caches:
         for key in ("attn_k", "attn_v"):
             # (nb, n_attn, B, S, KV, dh): zero-pad the sequence axis
             caches[key] = F.pad(caches[key], (0, 0, 0, 0, 0, pad_to - S))
@@ -172,8 +357,23 @@ def decode_step(params, cache, token, pos: int, cfg: ArchConfig):
 
 def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
                       dtype=None):
-    """Zero KV cache for serving."""
+    """Zero decode cache: KV caches for attention layers; for rwkv layers
+    the fp32 recurrent state and the two token-shift rows."""
     dtype = dtype or _dtype(cfg.compute_dtype)
-    shape = (cfg.n_blocks, 1, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn_k": torch.zeros(shape, dtype=dtype, device=device),
-            "attn_v": torch.zeros(shape, dtype=dtype, device=device)}
+    kinds = _layer_kinds(cfg)
+    nb = cfg.n_blocks
+    n_attn = sum(1 for m, _ in kinds if m == "attn")
+    n_rwkv = sum(1 for m, _ in kinds if m == "rwkv")
+    cache = {}
+    if n_attn:
+        shape = (nb, n_attn, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_rwkv:
+        H, hd = _rwkv_dims(cfg)
+        cache["ssm"] = torch.zeros((nb, n_rwkv, batch, H, hd, hd),
+                                   dtype=torch.float32, device=device)
+        for key in ("shift_t", "shift_c"):
+            cache[key] = torch.zeros((nb, n_rwkv, batch, 1, cfg.d_model),
+                                     dtype=dtype, device=device)
+    return cache

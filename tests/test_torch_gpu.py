@@ -1,5 +1,6 @@
-"""The port's kernels on the card: the serving path runs the flash kernel
-once per layer, and the lanesum32 kernel agrees bit for bit with its plain
+"""The port's kernels on the card: the serving paths run the flash kernel
+and the ssm_scan kernel once per layer, the ssm_scan kernel agrees with its
+plain versions, and the lanesum32 kernel agrees bit for bit with its plain
 version.
 
 It needs a CUDA device and skips without one.  It imports no JAX, so it runs
@@ -9,7 +10,7 @@ where only PyTorch is installed:
 
 The flash kernel's own cases against its plain versions are checked on the
 card by ``chip_smoke.py`` (``CHECK_CASES``), and so are the checksum kernel's
-larger ones (above 2 GiB).
+larger ones (above 2 GiB) and the ssm_scan kernel's served shapes.
 """
 
 import dataclasses
@@ -23,7 +24,21 @@ from repro_torch.kernels.checksum import kernel as cs_kernel
 from repro_torch.kernels.checksum.ops import checksum_digests
 from repro_torch.kernels.checksum.ref import digest_of, lanesum32_torch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
 from repro_torch.models.registry import build
+
+#: B, T, H, K, V, use_u, chunk, sub: tests/test_kernels.py's SSM_CASES, then
+#: ragged K, V and T
+SSM_CASES = [
+    (2, 64, 3, 8, 16, False, 32, 8),
+    (1, 128, 2, 16, 16, False, 64, 16),
+    (2, 48, 2, 8, 8, True, 16, 8),
+    (1, 40, 4, 8, 8, True, 16, 4),
+    (1, 256, 1, 32, 32, False, 128, 16),
+    (2, 37, 3, 20, 21, True, 16, 8),
+]
 
 pytestmark = pytest.mark.gpu
 
@@ -69,3 +84,75 @@ def test_checksum_kernel_matches_plain(cuda):
     flipped = big.clone()
     flipped.view(torch.int32)[12345] ^= 1 << 7
     assert checksum_digests([flipped]) != checksum_digests([big])
+
+
+def _ssm_inputs(case, dtype, device, seed=0):
+    B, T, H, K, V, use_u, _, _ = case
+    gen = torch.Generator(device).manual_seed(seed)
+    q, k = (torch.randn((B, T, H, K), generator=gen, device=device) * 0.5 for _ in range(2))
+    v = torch.randn((B, T, H, V), generator=gen, device=device) * 0.5
+    g = -torch.exp(torch.randn((B, T, H, K), generator=gen, device=device) - 1.5)
+    s0 = torch.randn((B, H, K, V), generator=gen, device=device) * 0.3
+    u = torch.randn((H, K), generator=gen, device=device) * 0.5 if use_u else None
+    return q.to(dtype), k.to(dtype), v.to(dtype), g, s0, u
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_CASES, ids=[f"s{i}" for i in range(len(SSM_CASES))])
+def test_ssm_kernel_matches_plain(cuda, case, dtype):
+    """Against the plain chunked form and the step recurrence on the same
+    inputs: fp32 at tests/test_kernels.py's 3e-5; in bf16 y may differ by
+    the rounding of y to bf16 (2e-2, as the flash kernel's bf16 cases), the
+    fp32 state by the order of fp32 sums (3e-5)."""
+    q, k, v, g, s0, u = _ssm_inputs(case, getattr(torch, dtype), cuda)
+    chunk, sub = case[-2:]
+    before = ssm_kernel.launches
+    y, s = ssm_scan(q, k, v, g, u, s0, chunk=chunk, subchunk=sub)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    assert y.dtype == q.dtype and s.dtype == torch.float32
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for want_y, want_s in (ssm_scan_chunked(q, k, v, g, u, s0, chunk=chunk, subchunk=sub),
+                           ssm_scan_ref(q, k, v, g, u, s0)):
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(s, want_s, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("use_u", [False, True], ids=["inclusive", "bonus"])
+def test_ssm_kernel_head_decay_and_io_dtype(cuda, use_u):
+    """A (B, T, H, 1) log decay broadcast over K, and ``io_dtype=bfloat16``
+    on fp32 inputs, through the kernel against the plain chunked form given
+    the same arguments (fp32 state and y: 3e-5)."""
+    q, k, v, g, s0, u = _ssm_inputs((2, 40, 3, 8, 8, use_u, 16, 8), torch.float32, cuda)
+    g1 = g[..., :1].contiguous()
+    before = ssm_kernel.launches
+    y, s = ssm_scan(q, k, v, g1, u, s0, chunk=16, subchunk=8, io_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1 and y.dtype == torch.float32
+    want_y, want_s = ssm_scan_chunked(q, k, v, g1, u, s0, chunk=16, subchunk=8,
+                                      io_dtype=torch.bfloat16)
+    torch.testing.assert_close(y, want_y, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(s, want_s, rtol=3e-5, atol=3e-5)
+
+
+def test_ssm_kernel_refuses_autograd(cuda):
+    q, k, v, g, s0, u = _ssm_inputs(SSM_CASES[2], torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="A9a"):
+        ssm_scan(q.requires_grad_(), k, v, g, u, s0)
+    with torch.no_grad():
+        ssm_scan(q, k, v, g, u, s0)
+
+
+def test_rwkv_prefill_runs_ssm_kernel_per_layer(cuda):
+    cfg = get_config("rwkv6-7b").scaled_down(param_dtype="bfloat16", compute_dtype="bfloat16")
+    api = build(cfg, cuda)
+    params = api.init(torch.Generator(api.device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    before, fa_before = ssm_kernel.launches, fa_kernel.launches
+    with torch.inference_mode():
+        logits, cache, _ = api.prefill(params, {"tokens": tokens})
+        assert ssm_kernel.launches == before + cfg.n_layers
+        api.decode(params, cache, logits[:, -1].argmax(-1)[:, None], 96)
+        assert ssm_kernel.launches == before + cfg.n_layers  # decode is the plain step
+        assert fa_kernel.launches == fa_before
+    assert torch.isfinite(logits).all()

@@ -1,6 +1,6 @@
 """Whole-model serving parity: the port's prefill and greedy decode against
 ``repro.models`` on the reference's own parameters, for three dense
-scaled-down configs in fp32."""
+scaled-down configs and rwkv6-7b (the ssm family) in fp32."""
 
 import os
 import subprocess
@@ -23,7 +23,7 @@ from repro_torch.models.registry import build
 from repro_torch.runtime.steps import make_serve_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b"]
+ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 32, 4
 
@@ -87,10 +87,11 @@ def test_prefill_decode_consistency(arch):
                                rtol=2e-2, atol=2e-2)
 
 
-def test_param_tree_layout_matches_jax():
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "rwkv6-7b"])
+def test_param_tree_layout_matches_jax(arch):
     """Same paths, shapes and dtypes as the reference tree, so weights carry
-    across as a byte copy (bf16 included)."""
-    arch = "h2o-danube-3-4b"
+    across as a byte copy (bf16 included, and rwkv6's fp32 ``u`` and
+    ``decay_bias`` inside a bf16 tree)."""
     jcfg = jax_get_config(arch).scaled_down(param_dtype="bfloat16")
     jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(0))
     jflat = {"/".join(str(getattr(k, "key", getattr(k, "idx", ""))) for k in path): leaf
@@ -102,9 +103,10 @@ def test_param_tree_layout_matches_jax():
     assert list(own) == list(jflat)
     for path, leaf in jflat.items():
         assert tuple(own[path].shape) == leaf.shape, path
-        assert own[path].dtype == torch.bfloat16
-        np.testing.assert_array_equal(ported[path].view(torch.uint16).numpy(),
-                                      np.asarray(leaf).view(np.uint16))
+        want_dtype = torch.bfloat16 if leaf.dtype == jnp.bfloat16 else torch.float32
+        assert own[path].dtype == ported[path].dtype == want_dtype, path
+        np.testing.assert_array_equal(ported[path].reshape(-1).view(torch.uint8).numpy(),
+                                      np.asarray(leaf).reshape(-1).view(np.uint8))
 
 
 def test_unported_family_raises():
@@ -112,11 +114,19 @@ def test_unported_family_raises():
         build(get_config("dbrx-132b").scaled_down(), "cpu")
 
 
-def test_serve_cli_cpu():
+def _serve_cli(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "h2o-danube-3-4b",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--device", "cpu", "--requests", "2", "--prompt-len", "16", "--gen-len", "4"],
         env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "prefill 2x16" in out.stdout and "decoded 3 steps x 2 seqs" in out.stdout
+
+
+def test_serve_cli_cpu():
+    _serve_cli("h2o-danube-3-4b")
+
+
+def test_serve_cli_cpu_rwkv6():
+    _serve_cli("rwkv6-7b")

@@ -7,19 +7,27 @@
 2. builds every CUDA kernel of the port from ``src/repro_torch`` (``nvcc``,
    one process per source, all at once);
 3. holds each kernel against its plain PyTorch version on the card:
-   flash attention (``kernel_check``), the lanesum32 checksum
+   flash attention (``kernel_check``: the TMA / wgmma path on every bf16
+   case it can describe, the mma.sync path on a head dim of 20 and on views
+   one element off 16-byte alignment, the fp32 path), the lanesum32 checksum
    (``checksum_check``, bit-exact, a buffer above 2 GiB included) and the
    ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
    strong and scalar decay, the full-width rwkv6 head shape at T 300, 512
    and 5120, y and the final state);
 4. times each kernel, its plain version and its bound at the main-path
-   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``);
+   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``); for flash
+   attention also the device time per call from ``torch.profiler``, for
+   the kernel and SDPA alike, and their ratio (where the window cuts, SDPA
+   with the band as a mask computes the kernel's function, and SDPA with
+   ``is_causal`` over every causal pair is timed beside it);
 5. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
    a seed) through ``repro_torch.launch.serve`` (``serve``): 4 requests x
    512-token prompts to 32 tokens, then 1 request x a 5120-token prompt to
-   8 tokens, and checks finite logits, 24 flash launches per prefill, the
-   same greedy first token through the plain attention, and logits about
-   as close to an fp32 prefill as the plain bf16 prefill's;
+   8 tokens, and checks finite logits, 24 flash launches per prefill, all
+   on the TMA path, the same greedy first token through the plain
+   attention, and logits about as close to an fp32 prefill as the plain
+   bf16 prefill's; one profiled prefill gives the device busy time, idle
+   share and the flash kernel's share of the busy time;
 6. serves full-width rwkv6-7b (32 layers, bf16) the same two ways
    (``serve_rwkv``): 32 scan launches per prefill and none per decode step,
    no flash or checksum launch, finite logits; in fp32 compute the kernel
@@ -74,7 +82,14 @@ CHECK_CASES = [
     (1, 130, 130, 2, 2, 80, True, 64),
     (1, 64, 64, 32, 8, 120, True, 48),
     (2, 300, 300, 32, 8, 120, True, 128),
+    (1, 333, 333, 8, 2, 128, True, 200),  # lengths ragged against the 128-row tiles
+    (2, 130, 333, 4, 1, 64, False, 100),
 ]
+#: bf16 inputs a TMA tensor map cannot describe, which take the mma.sync
+#: kernel: a head dim of 20 (40-byte rows), and q, k, v whose data start one
+#: element (2 bytes) past a 16-byte boundary
+SYNC_CASES = [((2, 200, 200, 4, 2, 20, True, None), 0),
+              ((1, 300, 300, 32, 8, 120, True, 128), 1)]
 MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
               (1, 5120, 5120, 32, 8, 120, True, 4096),
               (2, 2048, 2048, 32, 8, 120, True, 4096)]  # the training step's
@@ -88,6 +103,9 @@ LOGIT_SLACK = 1.5
 #: 0.19 and must stay above it.
 FP32_LOGIT_LIMIT = 2e-3
 
+#: calls under the profiler for kernel_times' device time per call, and runs
+#: of a profile that lost kernel records before the phase fails
+PROFILED_CALLS, PROFILE_TRIES = 20, 5
 #: H100 SXM data sheet, dense: memory bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
@@ -173,11 +191,25 @@ def time_ms(fn, torch, min_s=0.2):
     return start.elapsed_time(end) / n
 
 
-def attn_inputs(case, dtype, seed, device, torch):
+def attn_inputs(case, dtype, seed, device, torch, offset=0):
+    """q, k, v of ``case``; with ``offset``, each a view that starts that many
+    elements into its buffer."""
     B, Sq, Skv, H, KV, dh, _, _ = case
     gen = torch.Generator(device).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+    return [torch.randn(math.prod(shape) + offset, generator=gen, device=device).to(dtype)
+            [offset:].view(shape)
             for shape in ((B, Sq, H, dh), (B, Skv, KV, dh), (B, Skv, KV, dh))]
+
+
+def flash_counts(fa_kernel):
+    """The flash wrapper's launch counts: (all, TMA, mma.sync, fp32)."""
+    return (fa_kernel.launches, fa_kernel.tma_launches, fa_kernel.sync_launches,
+            fa_kernel.f32_launches)
+
+
+def reset_flash_counts(fa_kernel):
+    fa_kernel.launches = fa_kernel.tma_launches = 0
+    fa_kernel.sync_launches = fa_kernel.f32_launches = 0
 
 
 def kernel_check(torch, fa_kernel, fa_ref, device):
@@ -189,14 +221,24 @@ def kernel_check(torch, fa_kernel, fa_ref, device):
     would hide a fault: there atol is TOL times the mean |want| of each
     (b, q, h) row, the scale of that row's outputs and of its rounding."""
     rows, worst = [], 0.0
-    cases = [(c, dt) for c in CHECK_CASES for dt in ("float32", "bfloat16")]
-    cases += [(c, "bfloat16") for c in MAIN_CASES]
-    for i, (case, dt) in enumerate(cases):
+    cases = [(c, dt, 0) for c in CHECK_CASES for dt in ("float32", "bfloat16")]
+    cases += [(c, "bfloat16", 0) for c in MAIN_CASES]
+    cases += [(c, "bfloat16", off) for c, off in SYNC_CASES]
+    for i, (case, dt, off) in enumerate(cases):
         *_, causal, window = case
-        q, k, v = attn_inputs(case, getattr(torch, dt), i, device, torch)
+        q, k, v = attn_inputs(case, getattr(torch, dt), i, device, torch, offset=off)
+        want_path = ("fp32" if dt == "float32" else
+                     "TMA" if (case[5] % 8 == 0 and not off) else "mma.sync")
+        check((want_path == "TMA") == fa_kernel.tma_path(q, k, v),
+              f"case {case} {dt} offset {off}: tma_path disagrees with {want_path}")
+        counts = flash_counts(fa_kernel)
         got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window).float()
         torch.cuda.synchronize()
-        row = {"case": list(case), "dtype": dt}
+        took = tuple(a - b for a, b in zip(flash_counts(fa_kernel), counts))
+        want = {"TMA": (1, 1, 0, 0), "mma.sync": (1, 0, 1, 0), "fp32": (1, 0, 0, 1)}[want_path]
+        check(took == want, f"case {case} {dt}: launches (all, TMA, mma.sync, fp32) {took}, "
+                            f"want one on the {want_path} path")
+        row = {"case": list(case), "dtype": dt, "offset_elems": off, "path": want_path}
         for name, want in (
                 ("plain", fa_ref.chunked_attention(q, k, v, causal=causal, window=window,
                                                    chunk=128)),
@@ -221,9 +263,14 @@ def kernel_check(torch, fa_kernel, fa_ref, device):
 
 
 def kernel_times(torch, fa_kernel, fa_ref, F, device):
-    """kernel / plain / library times and the bound at the main-path shapes.
-    The library call is SDPA with ``is_causal`` where the window does not
-    cut, else with the causal-and-window band as a boolean mask."""
+    """kernel / plain / library times and the bound at the main-path shapes:
+    CUDA-event times over a loop of calls, and the device time per call that
+    torch.profiler records over PROFILED_CALLS calls, kernel and library
+    alike.  The library call is SDPA with ``is_causal`` where the window does
+    not cut, else with the causal-and-window band as a boolean mask, which
+    takes SDPA off its flash backend; there SDPA with ``is_causal`` (every
+    causal pair, a superset of the band) is timed too, as the yardstick a
+    user would pick."""
     out = []
     for i, case in enumerate(MAIN_CASES):
         B, Sq, Skv, H, KV, dh, causal, window = case
@@ -246,13 +293,35 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
             sdpa = dict(attn_mask=(pos[None, :] <= pos[:, None])
                         & (pos[None, :] > pos[:, None] - window))
 
-        def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
+        def lib(**kw):
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **(kw or sdpa))
 
         row["library_ms"] = time_ms(lib, torch)
         row["library_max_abs_err"] = (lib().transpose(1, 2).float() - fa_ref.chunked_attention(
             q, k, v, causal=causal, window=window).float()).abs().max().item()
         row["kernel_ms"] = row["ms"]
+        # device time per call from the profiler's kernel records, which an
+        # enqueue-bound loop of events would not show
+        timed = [("device_ms", lambda: fa_kernel.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)), ("library_device_ms", lib)]
+        if "attn_mask" in sdpa:
+            causal_lib = lambda: lib(is_causal=True)
+            row["library_is_causal_ms"] = time_ms(causal_lib, torch)
+            timed.append(("library_is_causal_device_ms", causal_lib))
+        for key, fn in timed:
+            kernels, n, _, _ = profile_device(
+                torch, lambda: [fn() for _ in range(PROFILED_CALLS)],
+                complete=lambda counts: counts and all(
+                    c % PROFILED_CALLS == 0 for c in counts.values()))
+            row[key] = sum(kernels.values()) / PROFILED_CALLS
+            row[key.replace("_ms", "_kernels_per_call")] = n / PROFILED_CALLS
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        row["device_ratio_to_library"] = row["device_ms"] / row["library_device_ms"]
+        if "attn_mask" in sdpa:
+            row["device_ratio_to_library_is_causal"] = (row["device_ms"]
+                                                        / row["library_is_causal_device_ms"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
         out.append(row)
         del q, k, v, qt, kt, vt, sdpa
     emit({"phase": "kernel_times", "rows": out})
@@ -271,11 +340,14 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         check(cfg == serve.get_config(ARCH), f"not the full-width config: {cfg}")
         serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
         res = serve.serve(api, params, tokens, gen_len)
-        n = fa_kernel.launches
+        n, n_tma, n_sync, n_f32 = flash_counts(fa_kernel)
         launches += n
         check(n == cfg.n_layers, f"{n} kernel launches in one prefill, want {cfg.n_layers}")
+        check(n_tma == n, f"serving took the mma.sync path {n_sync} / the fp32 path "
+                          f"{n_f32} times")
         check(cs_kernel.launches == 0, "serving launched the checksum kernel")
         check(ssm_kernel.launches == 0, "dense serving launched the scan kernel")
         logits = res["logits"]
@@ -286,23 +358,51 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
               and int(toks.max()) < cfg.vocab_size, f"generated tokens {tuple(toks.shape)}")
         peak_mem = torch.cuda.max_memory_allocated(device)
 
+        # one profiled prefill: device busy time and the flash kernel's share
+        def prefill():
+            return api.prefill(params, {"tokens": tokens})
+
+        with torch.inference_mode():
+            reset_flash_counts(fa_kernel)
+            pre_wall = statistics.median(wall_ms(torch, prefill, 3))
+            pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
+            by_name, pre_n, _, _ = profile_device(
+                torch, prefill, complete=lambda counts: sum(
+                    c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
+        check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
+              f"3 prefills: {pre_all} launches, {pre_tma} TMA and {pre_sync} mma.sync, "
+              f"want {3 * cfg.n_layers} on the TMA path")
+        pre_busy = sum(by_name.values())
+        pre_fa = sum(ms for name, ms in by_name.items() if "attn_fwd_bf16_tma" in name)
+        check(pre_fa > 0, "the profiled prefill shows no attn_fwd_bf16_tma kernel")
+
         # the same prefill through plain attention, in bf16 and in fp32
         plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
         exact = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"),
                       device)
+        before = flash_counts(fa_kernel)
         with torch.inference_mode():
             logits_plain, _, _ = plain.prefill(params, {"tokens": tokens})
             logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
-        check(fa_kernel.launches == n, "the plain-attention prefill launched the kernel")
+        check(flash_counts(fa_kernel) == before,
+              f"the plain-attention prefills launched the kernel: (all, TMA, mma.sync, fp32) "
+              f"{before} -> {flash_counts(fa_kernel)}")
         diff = (logits - logits_plain).abs().max().item()
         err = (logits - logits_exact).abs().max().item()
         err_plain = (logits_plain - logits_exact).abs().max().item()
         first, first_plain = logits[:, -1].argmax(-1), logits_plain[:, -1].argmax(-1)
         top2 = logits_plain[:, -1].topk(2, dim=-1).values
         row = {"requests": B, "prompt_len": S, "gen_len": gen_len,
-               "kernel_launches": n, "prefill_s": res["prefill_s"],
+               "kernel_launches": n, "flash_mma_sync_launches": n_sync + pre_sync,
+               "prefill_s": res["prefill_s"],
                "decode_s": res["decode_s"], "prefill_tok_s": res["prefill_tok_s"],
                "decode_tok_s": res["decode_tok_s"], "max_memory_allocated": peak_mem,
+               "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
+                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   "flash_kernel_ms": pre_fa,
+                                   "flash_kernel_share_of_busy": pre_fa / pre_busy,
+                                   "flash_tma_launches": pre_tma // 3,
+                                   "flash_mma_sync_launches": pre_sync // 3},
                "max_abs_logit_diff_vs_plain": diff,
                "max_abs_logit_err_vs_fp32": err,
                "plain_max_abs_logit_err_vs_fp32": err_plain,
@@ -317,7 +417,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         check(err <= LOGIT_SLACK * err_plain,
               f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
         results.append(row)
-        del api, params, tokens, res, logits, logits_plain, logits_exact, plain, exact
+        del api, params, tokens, res, logits, logits_plain, logits_exact, plain, exact, prefill
         torch.cuda.empty_cache()
     return results, launches
 
@@ -521,29 +621,37 @@ def ssm_times(torch, ssm_kernel, ssm_ref, device):
     return out
 
 
-def profile_device(torch, fn, spans=()):
+def profile_device(torch, fn, spans=(), complete=None):
     """torch.profiler over one call of ``fn``: ({kernel name: device ms},
     kernel launches, {span: device ms}, {span: device ms as key_averages
     books it}) for the record_function ranges named in ``spans``, which are
     kept out of the kernels.  The device's busy time is the sum of the
-    kernels'."""
+    kernels'.  The profiler can drop kernel records of a run; with
+    ``complete``, a predicate on {kernel name: records}, the run is repeated
+    until the records pass it, PROFILE_TRIES times at most."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels, launches, span_ms = {}, 0, {r: 0.0 for r in spans}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / 1e3
-            if ev.name in span_ms:
-                span_ms[ev.name] += ms
-            else:
-                kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
-                launches += 1
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels, counts, span_ms = {}, {}, {r: 0.0 for r in spans}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                ms = ev.time_range.elapsed_us() / 1e3
+                if ev.name in span_ms:
+                    span_ms[ev.name] += ms
+                else:
+                    kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
+                    counts[ev.name] = counts.get(ev.name, 0) + 1
+        if complete is None or complete(counts):
+            break
+    else:
+        raise SmokeFailure(f"torch.profiler missed kernel records in {PROFILE_TRIES} runs: "
+                           f"{counts}")
     cpu_side = {avg.key: getattr(avg, "device_time_total",
                                  getattr(avg, "cuda_time_total", 0.0)) / 1e3
                 for avg in prof.key_averages() if avg.key in span_ms}
-    return kernels, launches, span_ms, cpu_side
+    return kernels, sum(counts.values()), span_ms, cpu_side
 
 
 def wall_ms(torch, fn, reps):
@@ -595,14 +703,16 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         n_params = sum(t.numel() for t in flatten(params).values())
         serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
         res = serve.serve(api, params, tokens, gen_len)
         n = ssm_kernel.launches
         launches += n
+        fa_counts = flash_counts(fa_kernel)
         check(n == cfg.n_layers, f"{n} scan launches in one prefill and {gen_len - 1} decode "
                                  f"steps, want {cfg.n_layers} (one per layer, none in decode)")
-        check(fa_kernel.launches == 0 and cs_kernel.launches == 0,
-              f"rwkv serving launched flash {fa_kernel.launches} / checksum "
+        check(fa_counts == (0, 0, 0, 0) and cs_kernel.launches == 0,
+              f"rwkv serving launched flash {fa_counts} (all, TMA, mma.sync, fp32) / checksum "
               f"{cs_kernel.launches} times")
         logits = res["logits"]
         check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
@@ -628,7 +738,9 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
             check(n_pre == cfg.n_layers and n_dec == 0,
                   f"scan launches: {n_pre} in a prefill, {n_dec} in a decode step")
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
-            by_name, pre_n, _, _ = profile_device(torch, prefill)
+            by_name, pre_n, _, _ = profile_device(
+                torch, prefill, complete=lambda counts: sum(
+                    c for name, c in counts.items() if "ssm_scan_kernel" in name) == cfg.n_layers)
             pre_busy = sum(by_name.values())
             pre_ssm = sum(ms for name, ms in by_name.items() if "ssm_scan_kernel" in name)
             dec_wall = statistics.median(wall_ms(torch, lambda: step(params, cache, tok, S), 8))
@@ -670,7 +782,8 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
                "heads": cfg.d_model // cfg.ssm.head_dim, "head_dim": cfg.ssm.head_dim,
                "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
                "requests": B, "prompt_len": S, "gen_len": gen_len,
-               "kernel_launches": n, "kernel_launches_per_prefill": n_pre,
+               "kernel_launches": n, "flash_mma_sync_launches": fa_counts[2],
+               "kernel_launches_per_prefill": n_pre,
                "kernel_launches_per_decode_step": n_dec,
                "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
                "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
@@ -747,14 +860,16 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
     plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
     exact = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"), device)
     params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
-    fa_kernel.launches = 0
+    reset_flash_counts(fa_kernel)
     loss_k, _, g_k = value_and_grad(s.api, params, batch)
-    check(fa_kernel.launches == 2 * cfg.n_layers,
-          f"{fa_kernel.launches} flash launches in one loss and gradient, "
-          f"want {2 * cfg.n_layers} (forward, then the remat recompute)")
+    counts = flash_counts(fa_kernel)
+    check(counts == (2 * cfg.n_layers, 2 * cfg.n_layers, 0, 0),
+          f"flash launches (all, TMA, mma.sync, fp32) {counts} in one loss and gradient, "
+          f"want {2 * cfg.n_layers} on the TMA path (forward, then the remat recompute)")
     loss_p, _, g_p = value_and_grad(plain, params, batch)
     loss_e, _, g_e = value_and_grad(exact, params32, batch)
-    check(fa_kernel.launches == 2 * cfg.n_layers, "a plain-attention step launched the kernel")
+    check(flash_counts(fa_kernel) == counts,
+          f"a plain-attention step launched the kernel: {flash_counts(fa_kernel)}")
     (tok_k, _), (tok_p, _), (tok_e, terms) = (
         token_losses(api, p, batch, torch)
         for api, p in ((s.api, params), (plain, params), (exact, params32)))
@@ -768,7 +883,8 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
     # the loss is held to the fp32 step's alone: untrained, it is not ln V
     # (the logits' variance and the labels' gold logits add to it), so
     # ln V and the fp32 path's terms are printed, not checked
-    row = {"loss_kernel": loss_k.item(), "loss_plain_bf16": loss_p.item(),
+    row = {"flash_launches": counts[0], "flash_mma_sync_launches": counts[2],
+           "loss_kernel": loss_k.item(), "loss_plain_bf16": loss_p.item(),
            "loss_fp32": loss_e.item(), "ln_vocab": math.log(cfg.vocab_size),
            "loss_terms_fp32": terms,
            "loss_err_kernel": abs(loss_k.item() - loss_e.item()),
@@ -831,14 +947,17 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
 
         # run 1: steps 1-4, checkpoints at 2 and 4, an injected failure before step 5
         torch.cuda.reset_peak_memory_stats(device)
-        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
         try:
             run_training(s.api, s.opt, s.loop, s.data, ckpt_mgr=s.ckpt, state=state)
             check(False, "run 1 did not stop at the injected failure")
         except InjectedFailure as exc:
             run1 = exc.result
-        fa1, cs1 = fa_kernel.launches, cs_kernel.launches
+        fa1, cs1, sync1 = fa_kernel.launches, cs_kernel.launches, fa_kernel.sync_launches
         check(ssm_kernel.launches == 0, "dense training launched the scan kernel")
+        check(fa_kernel.tma_launches == fa1, f"training took the mma.sync flash path {sync1} / "
+                                             f"the fp32 path {fa_kernel.f32_launches} times")
         saves1 = list(s.ckpt.timings)
         check(run1.steps_run == FAIL_AT - 1 and int(state["opt"]["step"]) == FAIL_AT - 1,
               f"run 1 ran {run1.steps_run} steps")
@@ -881,10 +1000,13 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
 
         # the restart, as after a preemption: fresh objects, restore, steps 5-6
         s2 = launch_train.setup(launch_train.parse_args(argv))
-        fa_kernel.launches = cs_kernel.launches = ssm_kernel.launches = 0
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
         run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt)
-        fa2, cs2 = fa_kernel.launches, cs_kernel.launches
+        fa2, cs2, sync2 = fa_kernel.launches, cs_kernel.launches, fa_kernel.sync_launches
         check(ssm_kernel.launches == 0, "the restart launched the scan kernel")
+        check(fa_kernel.tma_launches == fa2, f"the restart took the mma.sync flash path {sync2} "
+                                             f"/ the fp32 path {fa_kernel.f32_launches} times")
         saves2 = list(s2.ckpt.timings)
         peak_mem = torch.cuda.max_memory_allocated(device)
         check(run2.restored_from == FAIL_AT - 1 and run2.steps_run == TRAIN_STEPS - FAIL_AT + 1,
@@ -937,20 +1059,25 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
                "max_memory_allocated": peak_mem, "digests_on_disk": on_disk,
                "corruption": corrupt}
         emit({"phase": "train", **row})
-        train_profile(torch, s2, state, batch)
-        return fa1 + fa2, cs1 + cs2
+        prof = train_profile(torch, s2, state, batch, fa_kernel)
+        return fa1 + fa2, cs1 + cs2, {"train_numerics": numerics["flash_mma_sync_launches"],
+                                      "train": sync1 + sync2,
+                                      "train_profile": prof["flash_mma_sync_launches"]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def train_profile(torch, s, state, batch):
+def train_profile(torch, s, state, batch, fa_kernel):
     """The training rate and where a step's time goes: WARM_STEPS warm
     steps timed one by one without the profiler, then torch.profiler over
     one step, device time per kernel name and under the step's
-    record_function ranges, and the plain attention backward timed alone."""
+    record_function ranges, and the plain attention backward timed alone.
+    The steps' flash launches must all take the TMA path."""
     from repro_torch.kernels.flash_attention.ops import FlashAttention
     from repro_torch.runtime.steps import make_train_step
+    cfg = s.api.cfg
     step_fn = make_train_step(s.api, s.opt)
+    reset_flash_counts(fa_kernel)
     step_fn(state, batch)
     torch.cuda.synchronize()
     walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
@@ -958,9 +1085,13 @@ def train_profile(torch, s, state, batch):
     ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
     kernels, n_launches, spans, cpu_side = profile_device(
         torch, lambda: step_fn(state, batch), ranges)
+    fa_counts = flash_counts(fa_kernel)
+    want = 2 * cfg.n_layers * (WARM_STEPS + 2)
+    check(fa_counts == (want, want, 0, 0),
+          f"flash launches (all, TMA, mma.sync, fp32) {fa_counts} in {WARM_STEPS + 2} steps, "
+          f"want {want} on the TMA path")
     busy = sum(kernels.values())
     # the attention of one layer at the step's shape: kernel forward, plain backward
-    cfg = s.api.cfg
     case = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             True, cfg.swa_window)
     q, k, v = (t.requires_grad_() for t in attn_inputs(case, torch.bfloat16, 11,
@@ -978,7 +1109,8 @@ def train_profile(torch, s, state, batch):
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
            "wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),
-           "kernel_launches": n_launches,
+           "kernel_launches": n_launches, "flash_launches": fa_counts[0],
+           "flash_mma_sync_launches": fa_counts[2],
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
            "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},
            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
@@ -987,7 +1119,12 @@ def train_profile(torch, s, state, batch):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1027,9 +1164,9 @@ def main() -> int:
         logs = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {src: [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln]
+                          if any(w in ln for w in ("entry function", "registers", "spill",
+                                                   "arning"))]
                     for src, log in logs.items()}})
-
     cfg = serve.get_config(ARCH)
     largest_leaf = ("largest training leaf, opt/m/lm_head/w", (cfg.d_model, cfg.vocab_size),
                     torch.float32)
@@ -1040,22 +1177,29 @@ def main() -> int:
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
-        _, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel,
-                                       device)
-        _, rwkv_ssm = serve_rwkv(torch, serve, build, (fa_kernel, cs_kernel, ssm_kernel),
-                                 ssm_ops, ssm_ref, device)
-        train_fa, train_cs = train_full_width(torch, launch_train, fa_kernel, cs_kernel,
-                                              ssm_kernel, device)
+        serve_rows, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
+                                                ssm_kernel, device)
+        rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, (fa_kernel, cs_kernel, ssm_kernel),
+                                         ssm_ops, ssm_ref, device)
+        train_fa, train_cs, train_sync = train_full_width(torch, launch_train, fa_kernel,
+                                                          cs_kernel, ssm_kernel, device)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    sync_by_run = {"serve": sum(r["flash_mma_sync_launches"] for r in serve_rows),
+                   "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
+                   **train_sync}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "kernel": "attn_fwd_bf16_tma (TMA, wgmma)",
         "launches": serve_fa + train_fa,
         "launches_by_path": {"serve": serve_fa, "serve_rwkv": 0, "train": train_fa},
+        # read in each run of each main path, and checked to be 0 there
+        "mma_sync_path_launches_by_run": sync_by_run,
+        "mma_sync_path_launches": sum(sync_by_run.values()),
         "max_abs_err": worst, **{k: times[0][k] for k in keys}, "shapes": times}, {
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",

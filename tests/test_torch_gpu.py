@@ -1,16 +1,16 @@
 """The port's kernels on the card: the serving paths run the flash kernel
-and the ssm_scan kernel once per layer, the ssm_scan kernel agrees with its
-plain versions, and the lanesum32 kernel agrees bit for bit with its plain
-version.
+and the ssm_scan kernel once per layer, the flash kernel's TMA path and its
+mma.sync path and the ssm_scan kernel agree with their plain versions, and the
+lanesum32 kernel agrees bit for bit with its plain version.
 
 It needs a CUDA device and skips without one.  It imports no JAX, so it runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The flash kernel's own cases against its plain versions are checked on the
-card by ``chip_smoke.py`` (``CHECK_CASES``), and so are the checksum kernel's
-larger ones (above 2 GiB) and the ssm_scan kernel's served shapes.
+``chip_smoke.py`` checks the flash kernel at the served shapes as well, and
+the checksum kernel's larger cases (above 2 GiB) and the ssm_scan kernel's
+served shapes.
 """
 
 import dataclasses
@@ -24,6 +24,7 @@ from repro_torch.kernels.checksum import kernel as cs_kernel
 from repro_torch.kernels.checksum.ops import checksum_digests
 from repro_torch.kernels.checksum.ref import digest_of, lanesum32_torch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import chunked_attention
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
@@ -40,6 +41,20 @@ SSM_CASES = [
     (2, 37, 3, 20, 21, True, 16, 8),
 ]
 
+#: B, Sq, Skv, H, KV, dh, causal, window: tests/test_kernels.py's ATTN_CASES,
+#: the served head shape, and lengths ragged against the kernel's 128-row tiles
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None),
+    (1, 128, 128, 4, 4, 128, True, None),
+    (1, 96, 96, 8, 1, 32, True, None),
+    (2, 64, 256, 4, 4, 48, False, None),
+    (1, 256, 256, 4, 2, 64, True, 96),
+    (1, 130, 130, 2, 2, 80, True, 64),
+    (2, 300, 300, 32, 8, 120, True, 128),
+    (1, 333, 333, 8, 2, 128, True, 200),
+    (2, 130, 333, 4, 1, 64, False, 100),
+]
+
 pytestmark = pytest.mark.gpu
 
 
@@ -51,16 +66,63 @@ def cuda():
     return torch.device("cuda")
 
 
+def _flash_inputs(case, device, offset=0):
+    """bf16 q, k, v of ``case``; with ``offset``, views that start that many
+    elements into their buffers."""
+    B, Sq, Skv, H, KV, dh, _, _ = case
+    gen = torch.Generator(device).manual_seed(sum(case[:6]))
+    return [torch.randn(B * S * n * dh + offset, generator=gen, device=device)
+            .bfloat16()[offset:].view(B, S, n, dh)
+            for S, n in ((Sq, H), (Skv, KV), (Skv, KV))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[f"f{i}" for i in range(len(FLASH_CASES))])
+def test_flash_tma_kernel_matches_plain(cuda, case):
+    """The TMA / wgmma kernel against the plain chunked version on the same
+    bf16 inputs, at tests/test_kernels.py's bf16 tolerance (2e-2)."""
+    *_, causal, window = case
+    q, k, v = _flash_inputs(case, cuda)
+    assert fa_kernel.tma_path(q, k, v)
+    before, tma_before = fa_kernel.launches, fa_kernel.tma_launches
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and fa_kernel.tma_launches == tma_before + 1
+    want = chunked_attention(q, k, v, causal=causal, window=window, chunk=128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case,offset", [((2, 200, 200, 4, 2, 20, True, None), 0),
+                                         ((1, 300, 300, 32, 8, 120, True, 128), 1)],
+                         ids=["head_dim_20", "offset_one_element"])
+def test_flash_mma_sync_path_matches_plain(cuda, case, offset):
+    """Inputs a TMA tensor map cannot describe (40-byte rows; data 2 bytes
+    past a 16-byte boundary) take the mma.sync kernel and agree with the
+    plain chunked version at 2e-2."""
+    *_, causal, window = case
+    q, k, v = _flash_inputs(case, cuda, offset)
+    assert not fa_kernel.tma_path(q, k, v)
+    before, tma_before = fa_kernel.launches, fa_kernel.tma_launches
+    sync_before = fa_kernel.sync_launches
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.sync_launches == sync_before + 1 and fa_kernel.launches == before + 1
+    assert fa_kernel.tma_launches == tma_before
+    want = chunked_attention(q, k, v, causal=causal, window=window, chunk=128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_prefill_runs_kernel_per_layer(cuda):
     cfg = get_config("h2o-danube-3-4b").scaled_down(
         param_dtype="bfloat16", compute_dtype="bfloat16")
     api = build(cfg, cuda)
     params = api.init(torch.Generator(api.device).manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
-    before = fa_kernel.launches
+    before, tma_before = fa_kernel.launches, fa_kernel.tma_launches
     with torch.inference_mode():
         logits, _, _ = api.prefill(params, {"tokens": tokens})
+        # one launch a layer, on the TMA path
         assert fa_kernel.launches == before + cfg.n_layers
+        assert fa_kernel.tma_launches == tma_before + cfg.n_layers
         plain = build(dataclasses.replace(cfg, attn_impl="full"), cuda)
         want, _, _ = plain.prefill(params, {"tokens": tokens})
     torch.testing.assert_close(logits, want, rtol=5e-2, atol=5e-2)

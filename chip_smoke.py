@@ -12,8 +12,9 @@
    one element off 16-byte alignment, the fp32 path), the lanesum32 checksum
    (``checksum_check``, bit-exact, a buffer above 2 GiB included) and the
    ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
-   strong and scalar decay, the full-width rwkv6 head shape at T 300, 512
-   and 5120, y and the final state);
+   strong and scalar decay, the chunked kernel's edges (T 1 and 17, a
+   decay of about -20 a step, K 128 and 18), the full-width rwkv6 head
+   shape at T 300, 512 and 5120, y and the final state);
 4. times each kernel, its plain version and its bound at the main-path
    shapes (``kernel_times``, ``checksum_times``, ``ssm_times``); for flash
    attention also the device time per call from ``torch.profiler``, for
@@ -135,11 +136,23 @@ SSM_SMALL_CASES = [
     (1, 64, 2, 8, 8, True, 32, 8, "strong"),
     (2, 48, 3, 8, 8, False, 16, 8, "scalar"),
 ]
+#: the chunked kernel's edges, fp32 and bf16: T of 1 and 17 (one ragged
+#: chunk), a decay of about -20 a step (``harsh``: a factorisation about a
+#: sub-chunk's start would overflow there), K = 128 with V = 40 (a ragged
+#: 32-column block), and K = 18 (rows that cp.async cannot copy whole)
+SSM_EDGE_CASES = [
+    (1, 1, 2, 8, 8, True, 16, 8, "random"),
+    (2, 17, 3, 16, 8, False, 16, 8, "random"),
+    (2, 70, 2, 64, 64, True, 32, 16, "harsh"),
+    (1, 45, 2, 8, 16, False, 16, 8, "harsh"),
+    (1, 100, 2, 128, 40, True, 32, 16, "random"),
+    (1, 33, 2, 18, 12, True, 16, 4, "random"),
+]
 SSM_WIDE_CASES = [(2, 300, 64, 64, 64, True, 128, 16, "random")]
 SSM_MAIN_CASES = [(4, 512, 64, 64, 64, True, 128, 16, "random"),
                   (1, 5120, 64, 64, 64, True, 128, 16, "random")]
 #: fp32: rtol = atol as tests/test_kernels.py (3e-5; 1e-4 for strong decay)
-SSM_TOL = {"random": 3e-5, "scalar": 3e-5, "strong": 1e-4}
+SSM_TOL = {"random": 3e-5, "scalar": 3e-5, "strong": 1e-4, "harsh": 3e-5}
 #: bf16 y: two bf16 ulps (an ulp is at most 2^-7 of the value), since the
 #: kernel and the plain version each round their fp32 y to bf16 once
 SSM_BF16_RTOL = 2.0 ** -6
@@ -518,7 +531,8 @@ def checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf):
 def ssm_inputs(case, dtype, seed, device, torch):
     """q, k, v in ``dtype``; g, s0, u fp32; distributed as tests/test_kernels.py's
     ``_ssm_inputs`` draws them (``strong``: log decays about -4.5 a step;
-    ``scalar``: one log decay per (b, t, h), broadcast over K)."""
+    ``harsh``: about -20 a step; ``scalar``: one log decay per (b, t, h),
+    broadcast over K)."""
     B, T, H, K, V, use_u, _, _, kind = case
     gen = torch.Generator(device).manual_seed(seed)
 
@@ -526,7 +540,7 @@ def ssm_inputs(case, dtype, seed, device, torch):
         return torch.randn(shape, generator=gen, device=device)
 
     q, k, v = randn(B, T, H, K) * 0.5, randn(B, T, H, K) * 0.5, randn(B, T, H, V) * 0.5
-    shift = -1.5 if kind == "strong" else 1.5
+    shift = {"strong": -1.5, "harsh": -3.0}.get(kind, 1.5)
     g = -torch.exp(randn(B, T, H, 1 if kind == "scalar" else K) - shift).expand(B, T, H, K)
     s0, u = randn(B, H, K, V) * 0.3, randn(H, K) * 0.5
     return q.to(dtype), k.to(dtype), v.to(dtype), g, s0, (u if use_u else None)
@@ -534,7 +548,8 @@ def ssm_inputs(case, dtype, seed, device, torch):
 
 def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
     """The scan kernel (through ``ops.ssm_scan``) against the plain chunked
-    version and the step recurrence ``ssm_scan_ref`` on the card, y and the
+    version, the step recurrence ``ssm_scan_ref`` and ``ssm_scan_blocked``
+    (the kernel's own blocking in plain PyTorch) on the card, y and the
     final state.
 
     The limit is ``atol + rtol * |want|``.  fp32: rtol = atol = SSM_TOL, the
@@ -544,10 +559,15 @@ def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
     the mean |want| of each (b, t, h) row for the fp32 order of sums, which
     scales with the row's outputs; the fp32 state keeps 3e-5.  The served
     shapes are checked with no initial state, as prefill calls them; the
-    others with one."""
+    others with one.  Under the ``harsh`` decay (about -20 a step) the
+    plain chunked version's cumulative log decay reaches about -1000 in a
+    chunk, and its fp32 rounding puts that version itself 2.8e-4 from the
+    step recurrence (on the CPU, at the harsh K 64 case), beyond SSM_TOL: its
+    distance is recorded there but the kernel is held to ``ssm_scan_ref``
+    and ``ssm_scan_blocked``."""
     rows, worst = [], 0.0
     cases = [(c, "float32") for c in SSM_SMALL_CASES]
-    cases += [(c, dt) for c in SSM_WIDE_CASES + SSM_MAIN_CASES
+    cases += [(c, dt) for c in SSM_EDGE_CASES + SSM_WIDE_CASES + SSM_MAIN_CASES
               for dt in ("float32", "bfloat16")]
     for i, (case, dt) in enumerate(cases):
         q, k, v, g, s0, u = ssm_inputs(case, getattr(torch, dt), 200 + i, device, torch)
@@ -566,7 +586,8 @@ def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
         for name, (want_y, want_s) in (
                 ("plain", ssm_ref.ssm_scan_chunked(q, k, v, g, u, s0, chunk=chunk,
                                                     subchunk=sub)),
-                ("ssm_scan_ref", ssm_ref.ssm_scan_ref(q, k, v, g, u, s0))):
+                ("ssm_scan_ref", ssm_ref.ssm_scan_ref(q, k, v, g, u, s0)),
+                ("blocked", ssm_ref.ssm_scan_blocked(q, k, v, g, u, s0))):
             for out, got, want in (("y", y.float(), want_y.float()), ("s_fin", s_fin, want_s)):
                 err = (got - want).abs()
                 if out == "y" and dt == "bfloat16":
@@ -578,9 +599,13 @@ def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
                 key = f"{out}_{name}"
                 row.update({f"max_abs_err_{key}": err.max().item(),
                             f"max_err_share_of_limit_{key}": share.max().item()})
+                if kind == "harsh" and name == "plain":
+                    continue  # recorded, not held: the plain form is off there itself
                 check(row[f"max_err_share_of_limit_{key}"] <= 1.0,
                       f"ssm kernel vs {name}, {out}: case {case} {dt}: {row}")
-            worst = max(worst, row[f"max_abs_err_y_{name}"], row[f"max_abs_err_s_fin_{name}"])
+            if not (kind == "harsh" and name == "plain"):
+                worst = max(worst, row[f"max_abs_err_y_{name}"],
+                            row[f"max_abs_err_s_fin_{name}"])
         rows.append(row)
         del q, k, v, g, s0, u, y, s_fin
     emit({"phase": "ssm_check", "ok": True, "cases": rows})
@@ -597,25 +622,38 @@ def ssm_work(B, T, H, K, V, elem_bytes):
     return nbytes, 4 * K * V * B * T * H
 
 
-def ssm_times(torch, ssm_kernel, ssm_ref, device):
+def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True):
     """Kernel / plain times and the bound at the served shapes, in bf16 as
-    served.  No single PyTorch call computes this recurrence, so there is no
-    library time."""
+    served: CUDA-event time over a loop of calls (``ms``) and the device
+    time per launch of the kernel's records under torch.profiler over
+    PROFILED_CALLS calls (``device_ms``), which a loop of events bound by
+    the enqueue would not show.  The bound is the larger of the bytes' and
+    the step form's operations' times, both reported.  No single PyTorch
+    call computes this recurrence, so there is no library time.  Without
+    ``plain`` the plain version is not timed."""
     out = []
     for i, case in enumerate(SSM_MAIN_CASES):
         B, T, H, K, V, _, chunk, sub, _ = case
         q, k, v, g, _, u = ssm_inputs(case, torch.bfloat16, 300 + i, device, torch)
         nbytes, flops = ssm_work(B, T, H, K, V, elem_bytes=2)
         t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-        ms = time_ms(lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g, u, None), torch)
+        call = lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g, u, None)
+        ms = time_ms(call, torch)
+        kernels, _, _, _ = profile_device(
+            torch, lambda: [call() for _ in range(PROFILED_CALLS)],
+            complete=lambda counts: sum(c for n, c in counts.items()
+                                        if "ssm_scan_kernel" in n) == PROFILED_CALLS)
+        device_ms = sum(t for n, t in kernels.items() if "ssm_scan_kernel" in n) / PROFILED_CALLS
         bound = max(t_mem, t_ops)
         out.append({"B": B, "T": T, "H": H, "K": K, "V": V, "dtype": "bfloat16",
                     "bytes": nbytes, "flops": flops, "ms": ms, "kernel_ms": ms,
+                    "device_ms": device_ms,
                     "plain_ms": time_ms(lambda: ssm_ref.ssm_scan_chunked(
-                        q, k, v, g, u, None, chunk=chunk, subchunk=sub), torch, min_s=0.5),
+                        q, k, v, g, u, None, chunk=chunk, subchunk=sub), torch, min_s=0.5)
+                    if plain else None,
                     "bound_ms": bound, "bound_by": "bytes" if t_mem >= t_ops else "operations",
                     "bytes_ms": t_mem, "operations_ms": t_ops, "library_ms": None,
-                    "share_of_bound": bound / ms})
+                    "share_of_bound": bound / ms, "device_share_of_bound": bound / device_ms})
         del q, k, v, g, u
     emit({"phase": "ssm_times", "rows": out})
     return out
@@ -1212,7 +1250,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
         "launches": rwkv_ssm,
         "launches_by_path": {"serve": 0, "serve_rwkv": rwkv_ssm, "train": 0},
-        "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys}, "shapes": s_times}]})
+        "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys},
+        "device_ms": s_times[0]["device_ms"], "shapes": s_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

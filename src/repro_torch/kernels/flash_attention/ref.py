@@ -42,10 +42,12 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
-                      chunk: int = 1024, q_offset: int = 0):
+                      chunk: int = 1024, q_offset: int = 0, accum_bf16: bool = False):
     """Online-softmax attention over KV chunks of ``chunk`` rows; never
     holds more than an (Sq, chunk) score block.  fp32 statistics and
-    accumulator; fully masked rows give 0."""
+    accumulator; fully masked rows give 0.  ``accum_bf16`` (the
+    reference's ``attn_accum_bf16``) takes P.V and the accumulator in
+    bf16, as the reference's chunked path does."""
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -54,7 +56,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
     q_pos = torch.arange(Sq, device=dev) + q_offset
     m = torch.full((B, KV, G, Sq), float("-inf"), device=dev)
     l = torch.zeros((B, KV, G, Sq), device=dev)
-    acc = torch.zeros((B, KV, G, Sq, dh), device=dev)
+    acc = torch.zeros((B, KV, G, Sq, dh), device=dev,
+                      dtype=torch.bfloat16 if accum_bf16 else torch.float32)
     for start in range(0, Skv, chunk):
         k_i = k[:, start:start + chunk].float()
         v_i = v[:, start:start + chunk].float()
@@ -67,8 +70,12 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
         p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
         corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, v_i)
+        if accum_bf16:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16(), v_i.bfloat16())
+            acc = acc * corr[..., None].bfloat16() + pv
+        else:
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, v_i)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    out = acc.float() / torch.clamp(l, min=1e-20)[..., None]
     out = out.permute(0, 3, 1, 2, 4)  # (B, Sq, KV, G, dh)
     return out.reshape(B, Sq, H, dh).to(q.dtype)

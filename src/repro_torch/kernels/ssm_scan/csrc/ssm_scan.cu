@@ -1,5 +1,6 @@
-// Gated linear recurrence (the ssm_scan forward) for Hopper (sm_90a), bound
-// from Python with ctypes (repro_torch/kernels/ssm_scan/kernel.py).
+// Gated linear recurrence (the ssm_scan forward) for Hopper (sm_90a), as the
+// chunked recurrence, bound from Python with ctypes
+// (repro_torch/kernels/ssm_scan/kernel.py).
 //
 // Replaces the TPU kernel src/repro/kernels/ssm_scan/kernel.py::_ssm_kernel
 // (launched by ssm_scan_bthk).  It computes the same function: per (b, h),
@@ -12,34 +13,46 @@
 // and returns y (in q's dtype) and the final state (fp32).  q, k, v are fp32
 // or bf16; g, u and the initial state are fp32.
 //
-// What bounds it on an H100: the step form does two multiply-adds, about
-// 4 * K * V fp32 operations, per (token, head), against 768 bytes at
-// K = V = 64 in bf16 (q, k, v and y at 2 bytes, g at 4, each moved once):
-// 21 operations a byte, just above the fp32 CUDA cores' balance of
-// 67e12 / 3.35e12 = 20.  So the bf16 served shapes are bound by operations,
-// barely; in fp32 (1280 bytes) they are bound by bytes.  What the design
-// does:
-//  * the TPU kernel's sequential chunk grid axis, whose state lives in VMEM
-//    scratch, becomes a loop over T inside one block: blocks run in no order,
-//    so nothing may carry state from one block to another;
-//  * the recurrence is independent across the V columns of S, so one block
-//    walks T for one (b, h) and a tile of 16 columns, and B * H * V / 16
-//    blocks fill the card (256 at B1, H64, V64);
-//  * a thread owns one column and K / 8 rows of the state, in registers.  Its
-//    partial y of each step goes to shared memory, and the 8 partials of a
-//    (t, column) are added once the chunk is done, so the steps of a chunk
-//    depend on each other only through S (one multiply-add a row) and the
-//    compiler can overlap them;
-//  * 32 time steps of q, k, g (32 x K) and of the tile of v are staged into
-//    shared memory with cp.async while the block computes the previous 32;
-//    exp(g), the conversion to fp32 and the u bonus are done once per
-//    (t, k) when a chunk lands, not once per column; rows are laid out so
-//    that each thread reads its K / 8 rows as float4 without bank conflicts;
-//  * the step form in fp32 on CUDA cores: no tensor cores, no TF32.  The
-//    chunked form on tensor cores (mma / wgmma) is later work;
+// What bounds it on an H100: the step form does 4 K V fp32 operations per
+// (token, head) against 2 (2K + 2V) + 4K bytes of q, k, v, y and g.  At the
+// served rwkv6 shapes (H 64, K = V = 64, bf16) the bytes take 0.0313 /
+// 0.0754 ms at B4 T512 / B1 T5120 at 3.35 TB/s, the step form's operations
+// 0.0321 / 0.0801 ms at 67 TFLOP/s: bound by operations, barely.  A kernel
+// in the step form cannot get near that: each step of S depends on the one
+// before it, so a block that walks T token by token waits on a chain of T
+// dependent updates (the previous version of this kernel spent about 170 ns
+// a step).  What the design does about it:
+//  * the chunked form: T is walked in chunks of L = 32 tokens and the state
+//    is carried once per chunk, not once per token.  Within a chunk
+//        y = qd S + A v + (q u k) v,   S <- diag(D_L) S + kd^T v
+//    with qd = q e^{zq} (z the cumulative log decay from the chunk's start,
+//    zq = z - g with u), kd = k e^{z_L - z}, and A the L x L lower
+//    triangle of decayed q.k products.  The serial chain is T / L links,
+//    and each link is three small matrix products with ample independent
+//    work, done in fp32 on the CUDA cores (register-tiled FFMA);
+//  * no exponent is ever positive: every decay factor is a product of
+//    per-step decays a_t = exp(g_t) <= 1.  A is built from sub-chunks of
+//    R = 4 tokens: a diagonal R x R block takes the exact decay between j
+//    and i's read point as a running product of a_t; an off-diagonal block
+//    (i in sub-chunk a, j in an earlier b) is factorised about the end of b,
+//    (q_i e^{zq_i - z_bend}) . (k_j e^{z_bend - z_j}), both sides <= 1, so a
+//    strong decay underflows harmlessly to 0 where a factorisation about a
+//    sub-chunk's start would overflow;
+//  * one block per (b, h, 32 columns of V): B H V / 32 blocks, 128 at B1 H64
+//    (one per SM) and 512 at B4 (two resident per SM at K <= 64).  A block
+//    stages a chunk's raw q, k, g and v rows once with cp.async for all its
+//    columns (the next chunk lands while this one computes), converts them
+//    to fp32 and takes exp(g) once per (t, k); 8 warps share the work;
+//  * per chunk: (1) per (sub-chunk, k) the running products q', k' and the
+//    sub-chunk decays; (2) qd, kd and the decays between sub-chunks; (3) A,
+//    as 4 x 4 tiles over K slices; (4) y (a depth-K + L product, K split
+//    over 4 lanes and reduced by shuffles) and the new state, which each
+//    thread keeps for its KP / 32 x 4 cells in registers; (5) the state to
+//    shared memory as the next chunk's operand;
 //  * T, K (<= 128) and V need not be multiples of anything: the ragged last
 //    chunk, rows of K past the data and columns past V are masked in the
 //    kernel, so no padding pass runs in device memory.  Offsets are 64-bit.
+//    The shared-memory limit is set once per device, not per launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,14 +62,15 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int L = 32;        // time steps per staged chunk
-constexpr int KG = 8;        // threads sharing a column: lane bits 2-4
-constexpr int CW = 4;        // columns per warp: lane bits 0-1
-constexpr int NW = 4;        // warps per block
-constexpr int VT = CW * NW;  // columns per block
-constexpr int NT = 32 * NW;  // threads per block
+constexpr int L = 32;       // tokens per chunk: the state is carried once per chunk
+constexpr int R = 4;        // tokens per sub-chunk (the diagonal blocks of A)
+constexpr int NS = L / R;   // sub-chunks per chunk
+constexpr int NPAIR = NS * (NS - 1) / 2;  // off-diagonal sub-chunk pairs (a > b)
+constexpr int VB = 32;      // columns of V per block
+constexpr int NT = 256;     // threads per block: 8 warps
 constexpr int MAX_K = 128;
-constexpr int YP_LD = VT + 4;  // row of the partial-y array: the 8 k groups hit 8 bank quads
+constexpr int LP = 36;      // row stride of the [k][t] arrays written per (k, sub-chunk)
+constexpr int SW = 40;      // row stride of the product operands qd, A^T, v and S
 
 struct Params {
   const void* q;
@@ -68,14 +82,11 @@ struct Params {
   void* y;
   float* s_fin;
   int B, T, H, K, V;
-  int vec_qk, vec_g, vec_v;  // rows may be copied 16 bytes at a time
+  int vec_qk, vec_g, vec_v, vec_y;  // rows may be moved 16 (y: 4 elements) at a time
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -107,69 +118,99 @@ __device__ __forceinline__ void stage_rows(T* sm, int sstride, const T* g, long 
   }
 }
 
-// Where row kk of a staged time step sits in the fp32 work arrays.  The
-// thread of k group kg owns rows kg * KR .. kg * KR + KR - 1.  For KR >= 4
-// its rows are stored as float4 groups 32 floats apart, so the 8 groups of a
-// warp read 128 consecutive bytes; for KR < 4 they are contiguous.
-template <int KR>
-__device__ __forceinline__ int widx(int kk) {
-  if constexpr (KR >= 4) {
-    const int kg = kk / KR, r = kk % KR;
-    return (r / 4) * 32 + kg * 4 + (r % 4);
-  } else {
-    return kk;
-  }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-template <int KR>
-__device__ __forceinline__ void load_rows(float (&dst)[KR], const float* row, int kg) {
-  if constexpr (KR >= 4) {
+// acc[r][c] += x[r] * y[c]
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4 x, const float4 y) {
+  const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-    for (int rq = 0; rq < KR / 4; ++rq) {
-      const float4 x = *reinterpret_cast<const float4*>(row + rq * 32 + kg * 4);
-      dst[rq * 4 + 0] = x.x;
-      dst[rq * 4 + 1] = x.y;
-      dst[rq * 4 + 2] = x.z;
-      dst[rq * 4 + 3] = x.w;
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xs[r], ys[c], acc[r][c]);
+}
+
+// Sums a 4 x 4 tile over the 4 lanes that differ in lane bits 0-1, leaving
+// each lane one row of the sum: row 2 * (lane & 1) + (lane >> 1 & 1).
+__device__ __forceinline__ void reduce_rows(const float (&acc)[4][4], float (&out)[4], int lane) {
+  const bool h1 = lane & 1, h2 = lane & 2;
+  float half[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float keep = h1 ? acc[r + 2][c] : acc[r][c];
+      const float send = h1 ? acc[r][c] : acc[r + 2][c];
+      half[r][c] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
     }
-  } else if constexpr (KR == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(row + kg * 2);
-    dst[0] = x.x;
-    dst[1] = x.y;
-  } else {
-    dst[0] = row[kg];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float keep = h2 ? half[1][c] : half[0][c];
+    const float send = h2 ? half[0][c] : half[1][c];
+    out[c] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
   }
 }
 
-template <typename T, int KR>
-constexpr size_t smem_bytes() {
-  constexpr int KP = KG * KR;
-  return (2 * L * KP + L * VT) * sizeof(T) +
-         (4 * L * KP + L * VT + L * KG * YP_LD + L) * sizeof(float);
+__device__ __forceinline__ void store_y(float* y, const float (&x)[4], int n, bool vec) {
+  if (vec && n == 4) {
+    *reinterpret_cast<float4*>(y) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    for (int c = 0; c < n; ++c) y[c] = x[c];
+  }
+}
+__device__ __forceinline__ void store_y(bf16* y, const float (&x)[4], int n, bool vec) {
+  if (vec && n == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]), hi = __floats2bfloat162_rn(x[2], x[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<unsigned*>(&lo);
+    w.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(y) = w;
+  } else {
+    for (int c = 0; c < n; ++c) y[c] = __float2bfloat16(x[c]);
+  }
 }
 
-template <typename T, int KR>
-__global__ void __launch_bounds__(NT) ssm_scan_kernel(const Params p) {
-  constexpr int KP = KG * KR;           // K padded to 8 * KR
-  constexpr int UPL = (KP + 31) / 32;   // rows per lane in the staging pass
-  const int j0 = blockIdx.x * VT, h = blockIdx.y, b = blockIdx.z;
-  const int vw = min(VT, p.V - j0);     // columns of this tile inside V
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kg = lane / CW, jl = warp * CW + lane % CW;
-  const bool col_ok = jl < vw;
-  const bool use_u = p.u != nullptr;
+// Shared memory of one block, in floats, then the raw staging in T.
+template <typename T, int KP>
+struct Layout {
+  static constexpr int QF = 0;                 // q, [k][t] (LP): the diagonal blocks
+  static constexpr int KF = QF + KP * LP;      // k
+  static constexpr int AF = KF + KP * LP;      // a = exp(g)
+  static constexpr int QP = AF + KP * LP;      // q' = q w (to the sub-chunk's start)
+  static constexpr int KQ = QP + KP * LP;      // k' = k r (to the sub-chunk's end)
+  static constexpr int QD = KQ + KP * LP;      // qd, [k][t] (SW)
+  static constexpr int KD = QD + KP * SW;      // kd, [t][k]
+  static constexpr int MX = KD + L * KP;       // M_ab, [pair][k]
+  static constexpr int DS = MX + NPAIR * KP;   // D_s, [s][k]
+  static constexpr int AT = DS + NS * KP;      // A^T, [j][i] (SW)
+  static constexpr int VF = AT + L * SW;       // v, [t][j] (SW)
+  static constexpr int SS = VF + L * SW;       // S, [k][j] (SW)
+  static constexpr int BP = SS + KP * SW;      // bonus partials, [k / 32][t]
+  static constexpr int RG = BP + 4 * L;        // raw g, [t][k]
+  static constexpr int FLOATS = RG + L * KP;
+  static constexpr size_t BYTES = FLOATS * sizeof(float) + (2 * L * KP + L * VB) * sizeof(T);
+};
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* rq = reinterpret_cast<T*>(smem);   // raw chunk as copied: L x KP
-  T* rk = rq + L * KP;                  // L x KP
-  T* rv = rk + L * KP;                  // L x VT
-  float* rg = reinterpret_cast<float*>(rv + L * VT);  // L x KP
-  float* fq = rg + L * KP;              // fp32 work arrays, rows at widx
-  float* fk = fq + L * KP;
-  float* fe = fk + L * KP;              // exp(g)
-  float* fv = fe + L * KP;              // L x VT
-  float* yp = fv + L * VT;              // L x KG x YP_LD: partial y of each k group
-  float* bonus = yp + L * KG * YP_LD;   // L: sum_k q u k
+template <typename T, int KP, bool U>
+__global__ void __launch_bounds__(NT, KP <= 64 ? 2 : 1) ssm_scan_kernel(const Params p) {
+  using LY = Layout<T, KP>;
+  constexpr int KR = KP / 32;         // state rows per thread
+  constexpr int TPT = NS * KP / NT;   // (sub-chunk, k) tasks per thread: 1, 2 or 4
+  static_assert(TPT * NT == NS * KP && KP % 32 == 0, "tasks must tile the block");
+  const int j0 = blockIdx.x * VB, h = blockIdx.y, b = blockIdx.z;
+  const int vw = min(VB, p.V - j0);   // columns of this block inside V
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) float sm[];
+  float *QF = sm + LY::QF, *KF = sm + LY::KF, *AF = sm + LY::AF, *QP = sm + LY::QP,
+        *KQ = sm + LY::KQ, *QD = sm + LY::QD, *KD = sm + LY::KD, *MX = sm + LY::MX,
+        *DS = sm + LY::DS, *AT = sm + LY::AT, *VF = sm + LY::VF, *SS = sm + LY::SS,
+        *BP = sm + LY::BP, *rg = sm + LY::RG;
+  T* rq = reinterpret_cast<T*>(sm + LY::FLOATS);
+  T* rk = rq + L * KP;
+  T* rv = rk + L * KP;
 
   const long long HK = static_cast<long long>(p.H) * p.K;  // elements per time step
   const long long HV = static_cast<long long>(p.H) * p.V;
@@ -181,25 +222,31 @@ __global__ void __launch_bounds__(NT) ssm_scan_kernel(const Params p) {
   T* gy = static_cast<T*>(p.y) + bth * p.V + j0;
   const long long sbase = (static_cast<long long>(b) * p.H + h) * p.K;  // row (b, h, 0)
 
-  float S[KR];
+  // the state: this thread's rows skb * KR + r and columns 4 scb + c
+  const int scb = lane & 7, skb = warp * 4 + lane / 8;
+  float S[KR][4];
 #pragma unroll
   for (int r = 0; r < KR; ++r) {
-    const int kk = kg * KR + r;
-    S[r] = (p.s0 != nullptr && kk < p.K && col_ok) ? p.s0[(sbase + kk) * p.V + j0 + jl] : 0.f;
-  }
-  float u_l[UPL];
+    const int kk = skb * KR + r;
 #pragma unroll
-  for (int i = 0; i < UPL; ++i) {
-    const int kk = lane + 32 * i;
-    u_l[i] = (use_u && kk < p.K) ? p.u[static_cast<long long>(h) * p.K + kk] : 0.f;
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * scb + c;
+      S[r][c] = (p.s0 != nullptr && kk < p.K && j < vw) ? p.s0[(sbase + kk) * p.V + j0 + j] : 0.f;
+    }
+    st4(SS + kk * SW + 4 * scb, S[r]);
   }
+  for (int i = tid; i < L * SW; i += NT) AT[i] = 0.f;  // the tiles above the diagonal stay 0
+
+  // this thread's prep tasks: (sub-chunk tid / KP + i * NT / KP, k = tid % KP)
+  const int pk = tid % KP;
+  const float u_k = (U && pk < p.K) ? p.u[static_cast<long long>(h) * p.K + pk] : 0.f;
 
   auto issue = [&](int c) {
     const int t0 = c * L, rows = min(L, p.T - t0);
     stage_rows<T>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
     stage_rows<T>(rk, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
     stage_rows<float>(rg, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
-    stage_rows<T>(rv, VT, gv + t0 * HV, HV, rows, vw, p.vec_v);
+    stage_rows<T>(rv, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
     cp_async_commit();
   };
 
@@ -209,96 +256,231 @@ __global__ void __launch_bounds__(NT) ssm_scan_kernel(const Params p) {
     const int t0 = c * L, nt = min(L, p.T - t0);
     cp_async_wait_all();
     __syncthreads();
-    // the landed chunk to fp32 work arrays: exp(g) and the bonus once per (t, k)
-    for (int t = warp; t < nt; t += NW) {
-      float part = 0.f;
+
+    // (1) per (sub-chunk s, k): fp32 rows, a = exp(g), q' = q w, k' = k r, D_s
+    float qp[TPT][R], kp[TPT][R];
 #pragma unroll
-      for (int i = 0; i < UPL; ++i) {
-        const int kk = lane + 32 * i;
-        if (kk < KP) {
-          float qv = 0.f, kv = 0.f, gl = 0.f;  // rows past K: q = k = 0, exp(0) = 1
-          if (kk < p.K) {
-            qv = to_f(rq[t * KP + kk]);
-            kv = to_f(rk[t * KP + kk]);
-            gl = rg[t * KP + kk];
-          }
-          const int w = t * KP + widx<KR>(kk);
-          fq[w] = qv;
-          fk[w] = kv;
-          fe[w] = expf(gl);
-          part = fmaf(qv * u_l[i], kv, part);
-        }
+    for (int i = 0; i < TPT; ++i) {
+      const int s = tid / KP + i * (NT / KP);
+      float qv[R], kv[R], av[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = s * R + r;
+        const bool ok = t < nt && pk < p.K;  // past T or K: q = k = 0, a = 1 (inert)
+        qv[r] = ok ? to_f(rq[t * KP + pk]) : 0.f;
+        kv[r] = ok ? to_f(rk[t * KP + pk]) : 0.f;
+        av[r] = ok ? expf(rg[t * KP + pk]) : 1.f;
       }
+      st4(QF + pk * LP + s * R, qv);
+      st4(KF + pk * LP + s * R, kv);
+      st4(AF + pk * LP + s * R, av);
+      float w = 1.f;  // decay from the sub-chunk's start to t's read point
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) bonus[t] = part;
-      if (lane < VT) fv[t * VT + lane] = lane < vw ? to_f(rv[t * VT + lane]) : 0.f;
+      for (int r = 0; r < R; ++r) {
+        if (!U) w *= av[r];
+        qp[i][r] = qv[r] * w;
+        if (U) w *= av[r];
+      }
+      float rr = 1.f;  // decay from t to the sub-chunk's end
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        kp[i][r] = kv[r] * rr;
+        rr *= av[r];
+      }
+      st4(QP + pk * LP + s * R, qp[i]);
+      st4(KQ + pk * LP + s * R, kp[i]);
+      DS[s * KP + pk] = w;
+      if (U) {  // sum over k of q u k for the sub-chunk's 4 tokens: this warp's 32 k
+        float bq[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) bq[r] = qv[r] * u_k * kv[r];
+        const bool b4 = lane & 16, b3 = lane & 8;
+        float x0 = (b4 ? bq[2] : bq[0]) + __shfl_xor_sync(0xffffffffu, b4 ? bq[0] : bq[2], 16);
+        float x1 = (b4 ? bq[3] : bq[1]) + __shfl_xor_sync(0xffffffffu, b4 ? bq[1] : bq[3], 16);
+        float x = (b3 ? x1 : x0) + __shfl_xor_sync(0xffffffffu, b3 ? x0 : x1, 8);
+#pragma unroll
+        for (int off = 4; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+        if ((lane & 7) == 0) BP[(pk / 32) * L + s * R + 2 * b4 + b3] = x;
+      }
+    }
+    for (int e = tid; e < L * VB; e += NT) {
+      const int t = e / VB, j = e % VB;
+      VF[t * SW + j] = (t < nt && j < vw) ? to_f(rv[t * VB + j]) : 0.f;
     }
     __syncthreads();
     if (c + 1 < nchunks) issue(c + 1);  // the raw buffers are free again
 
-    // the recurrence over this chunk's steps
-#pragma unroll 4
-    for (int t = 0; t < nt; ++t) {
-      float qr[KR], kr[KR], er[KR];
-      load_rows<KR>(qr, fq + t * KP, kg);
-      load_rows<KR>(kr, fk + t * KP, kg);
-      load_rows<KR>(er, fe + t * KP, kg);
-      const float vj = fv[t * VT + jl];
-      float y0 = 0.f, y1 = 0.f;
-      if (use_u) {  // read S_{t-1}, then decay and add
+    // (2) qd = q' P_s, kd = k' Q_s, and M_ab for the pairs (a = s, b < s)
 #pragma unroll
-        for (int r = 0; r < KR; ++r) {
-          if (r & 1) y1 = fmaf(qr[r], S[r], y1);
-          else y0 = fmaf(qr[r], S[r], y0);
-          S[r] = fmaf(er[r], S[r], kr[r] * vj);
-        }
-      } else {      // decay and add, then read S_t
+    for (int i = 0; i < TPT; ++i) {
+      const int s = tid / KP + i * (NT / KP);
+      float P = 1.f, Q = 1.f;
+      for (int cc = 0; cc < s; ++cc) P *= DS[cc * KP + pk];
+      for (int cc = s + 1; cc < NS; ++cc) Q *= DS[cc * KP + pk];
+      float qd[R];
 #pragma unroll
-        for (int r = 0; r < KR; ++r) {
-          S[r] = fmaf(er[r], S[r], kr[r] * vj);
-          if (r & 1) y1 = fmaf(qr[r], S[r], y1);
-          else y0 = fmaf(qr[r], S[r], y0);
-        }
+      for (int r = 0; r < R; ++r) {
+        qd[r] = qp[i][r] * P;
+        KD[(s * R + r) * KP + pk] = kp[i][r] * Q;
       }
-      yp[(t * KG + kg) * YP_LD + jl] = y0 + y1;
+      st4(QD + pk * SW + s * R, qd);
+      float m = 1.f;
+      for (int sb = s - 1; sb >= 0; --sb) {
+        MX[(s * (s - 1) / 2 + sb) * KP + pk] = m;
+        m *= DS[sb * KP + pk];
+      }
     }
     __syncthreads();
-    // y of the chunk: the 8 partials of each (t, column), plus the bonus
-    for (int i = tid; i < nt * VT; i += NT) {
-      const int t = i / VT, jj = i % VT;
-      float y = bonus[t] * fv[t * VT + jj];  // bonus is 0 without u
+
+    // (3) A in 4 x 4 tiles, each over 4 interleaved K slices (k = 4 i + slice)
+    // whose lanes sum by shuffles: warp 0 the 8 diagonal tiles, warps 1-4 the
+    // 28 off-diagonal ones
+    if (warp < 5) {
+      const int tile = tid / 4, sl = tid % 4;
+      const bool live = tile < NS + NPAIR;
+      float acc[4][4] = {};
+      int ta = 0, tb = 0;
+      if (tile < NS) {
+        ta = tb = tile;
+        for (int kk = sl; kk < KP; kk += 4) {
+          const float4 q4 = ld4(QF + kk * LP + ta * R), k4 = ld4(KF + kk * LP + ta * R),
+                       a4 = ld4(AF + kk * LP + ta * R);
+          const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w},
+                      av[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-      for (int g = 0; g < KG; ++g) y += yp[(t * KG + g) * YP_LD + jj];
-      if (jj < vw) gy[(t0 + t) * HV + jj] = from_f<T>(y);
+          for (int i = 0; i < R; ++i) {
+            float x = qv[i];
+            if (!U) acc[i][i] = fmaf(x, kv[i], acc[i][i]);
+#pragma unroll
+            for (int j = i - 1; j >= 0; --j) {
+              if (!U || j < i - 1) x *= av[j + 1];
+              acc[i][j] = fmaf(x, kv[j], acc[i][j]);
+            }
+          }
+        }
+      } else {
+        const int pair = live ? tile - NS : 0;
+        while ((ta + 1) * ta / 2 <= pair) ++ta;  // pair = ta (ta - 1) / 2 + tb
+        tb = pair - ta * (ta - 1) / 2;
+        for (int kk = live ? sl : KP; kk < KP; kk += 4) {
+          const float m = MX[pair * KP + kk];
+          float4 q4 = ld4(QP + kk * LP + ta * R);
+          q4.x *= m; q4.y *= m; q4.z *= m; q4.w *= m;
+          outer4(acc, q4, ld4(KQ + kk * LP + tb * R));
+        }
+      }
+      float row[4];
+      reduce_rows(acc, row, lane);
+      const int i = 2 * (lane & 1) + (lane >> 1 & 1);
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) AT[(tb * R + j) * SW + ta * R + i] = row[j];
+      }
     }
+    __syncthreads();
+
+    // (4a) the state: S <- D_L S + kd^T v, in registers
+    {
+#pragma unroll
+      for (int r = 0; r < KR; ++r) {
+        float dl = 1.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) dl *= DS[s * KP + skb * KR + r];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) S[r][cc] *= dl;
+      }
+#pragma unroll 8
+      for (int t = 0; t < L; ++t) {
+        const float4 v4 = ld4(VF + t * SW + 4 * scb);
+        const float vs[4] = {v4.x, v4.y, v4.z, v4.w};
+        const float* kd = KD + t * KP + skb * KR;
+        float kr[KR];
+        if constexpr (KR == 4) {
+          const float4 x = ld4(kd);
+          kr[0] = x.x; kr[1] = x.y; kr[2] = x.z; kr[3] = x.w;
+        } else if constexpr (KR == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(kd);
+          kr[0] = x.x; kr[1] = x.y;
+        } else {
+          kr[0] = kd[0];
+        }
+#pragma unroll
+        for (int r = 0; r < KR; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) S[r][cc] = fmaf(kr[r], vs[cc], S[r][cc]);
+      }
+    }
+    // (4b) y = qd S + A v + bonus v: a 4 x 4 tile of (t, column) per lane
+    // group, its depth (K, then L) split over the 4 lanes of the group
+    {
+      const int sl = lane & 3, cb = 4 * (warp & 1) + (lane >> 2 & 3);
+      const int rb = 2 * (warp >> 1) + (lane >> 4);
+      float acc[4][4] = {};
+#pragma unroll 4
+      for (int kk = sl; kk < KP; kk += 4)
+        outer4(acc, ld4(QD + kk * SW + 4 * rb), ld4(SS + kk * SW + 4 * cb));
+#pragma unroll 4
+      for (int s = sl; s < L; s += 4)
+        outer4(acc, ld4(AT + s * SW + 4 * rb), ld4(VF + s * SW + 4 * cb));
+      float row[4];
+      reduce_rows(acc, row, lane);
+      const int t = 4 * rb + 2 * (lane & 1) + (lane >> 1 & 1);
+      if (U) {
+        float bonus = 0.f;
+#pragma unroll
+        for (int w = 0; w < KP / 32; ++w) bonus += BP[w * L + t];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) row[cc] = fmaf(bonus, VF[t * SW + 4 * cb + cc], row[cc]);
+      }
+      if (t < nt && 4 * cb < vw)
+        store_y(gy + (t0 + t) * HV + 4 * cb, row, min(4, vw - 4 * cb), p.vec_y);
+    }
+    __syncthreads();
+    // (5) the new state as the next chunk's operand
+#pragma unroll
+    for (int r = 0; r < KR; ++r) st4(SS + (skb * KR + r) * SW + 4 * scb, S[r]);
   }
 #pragma unroll
   for (int r = 0; r < KR; ++r) {
-    const int kk = kg * KR + r;
-    if (kk < p.K && col_ok) p.s_fin[(sbase + kk) * p.V + j0 + jl] = S[r];
+    const int kk = skb * KR + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * scb + c;
+      if (kk < p.K && j < vw) p.s_fin[(sbase + kk) * p.V + j0 + j] = S[r][c];
+    }
   }
 }
 
-template <typename T, int KR>
+template <typename T, int KP, bool U>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, KR>();
-  cudaError_t err = cudaFuncSetAttribute(ssm_scan_kernel<T, KR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr size_t smem = Layout<T, KP>::BYTES;
+  static_assert(smem <= 232448, "more shared memory than a block may have");
+  static unsigned long long done = 0;  // devices whose limit is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.V + VT - 1) / VT, p.H, p.B);
-  ssm_scan_kernel<T, KR><<<grid, NT, smem, stream>>>(p);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(done >> dev & 1)) {
+    err = cudaFuncSetAttribute(ssm_scan_kernel<T, KP, U>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    done |= 1ull << dev;
+  }
+  const dim3 grid((p.V + VB - 1) / VB, p.H, p.B);
+  ssm_scan_kernel<T, KP, U><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, bool U>
+cudaError_t dispatch_k(const Params& p, cudaStream_t stream) {
+  if (p.K <= 32) return launch<T, 32, U>(p, stream);
+  if (p.K <= 64) return launch<T, 64, U>(p, stream);
+  return launch<T, 128, U>(p, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.K <= 8) return launch<T, 1>(p, stream);
-  if (p.K <= 16) return launch<T, 2>(p, stream);
-  if (p.K <= 32) return launch<T, 4>(p, stream);
-  if (p.K <= 64) return launch<T, 8>(p, stream);
-  return launch<T, 16>(p, stream);
+  return p.u != nullptr ? dispatch_k<T, true>(p, stream) : dispatch_k<T, false>(p, stream);
 }
 
 }  // namespace
@@ -314,7 +496,8 @@ extern "C" int repro_ssm_scan_fwd(const void* q, const void* k, const void* v, c
   if (B < 0 || T < 0 || H < 0 || K < 1 || K > MAX_K || V < 1 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
-  const Params p{q, k, v, g, u, s0, y, s_fin, B, T, H, K, V, vec_qk, vec_g, vec_v};
+  const int vec_y = V % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  const Params p{q, k, v, g, u, s0, y, s_fin, B, T, H, K, V, vec_qk, vec_g, vec_v, vec_y};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? dispatch<bf16>(p, s) : dispatch<float>(p, s));
 }

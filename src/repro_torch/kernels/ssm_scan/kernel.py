@@ -1,10 +1,12 @@
 """ctypes binding of the Hopper gated-linear-recurrence kernel.
 
-The kernel (``csrc/ssm_scan.cu``) replaces the TPU kernel
-``repro/kernels/ssm_scan/kernel.py::_ssm_kernel``.  It reads contiguous
-(B, T, H, K) / (B, T, H, V) tensors in place and masks a ragged T itself,
-so no padding pass runs in device memory.  It launches on the current
-stream and does not synchronise.
+The kernel (``csrc/ssm_scan.cu``, the chunked recurrence) replaces the TPU
+kernel ``repro/kernels/ssm_scan/kernel.py::_ssm_kernel``.  It reads
+contiguous (B, T, H, K) / (B, T, H, V) tensors in place and masks a ragged
+T itself, so no padding pass runs in device memory.  It launches on the
+current stream and does not synchronise.  The entry point is typed once,
+on first use; ``load_variant`` points the wrapper at a library built from
+another version of the source (``scripts/ssm_scan_torch.py``).
 """
 
 from __future__ import annotations
@@ -21,12 +23,29 @@ MAX_K = 128
 #: launches of the kernel since the last reset; only a launch adds to it
 launches = 0
 
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_bound = None     # the typed entry point, once loaded
+_variant = None   # a library built from another version of SOURCE (load_variant)
+
+
+def load_variant(path) -> None:
+    """Makes the wrapper launch the entry point of the shared library at
+    ``path``, built from a changed copy of SOURCE, or that of SOURCE again
+    when ``path`` is None."""
+    global _bound, _variant
+    _variant = None if path is None else ctypes.CDLL(str(path))
+    _bound = None
+
 
 def _fn():
-    fn = _build.load(SOURCE).repro_ssm_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entry point, built, loaded and typed on first use."""
+    global _bound
+    if _bound is None:
+        fn = (_build.load(SOURCE) if _variant is None else _variant).repro_ssm_scan_fwd
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _bound = fn
+    return _bound
 
 
 def _vec(t: torch.Tensor, row: int) -> int:

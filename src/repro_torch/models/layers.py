@@ -126,7 +126,12 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
                     use_rope=True):
     """Full-sequence (prefill) self-attention; returns (out, (k, v)).
     ``cfg.attn_impl == "full"`` takes the plain full-matrix path, as in
-    the reference; any other value takes ``flash_attention_auto``."""
+    the reference; any other value takes ``flash_attention_auto``.
+    ``cfg.attn_shard_constraints`` raises: the port has no sharding yet."""
+    if cfg.attn_shard_constraints:
+        raise NotImplementedError(
+            "attention_apply: attn_shard_constraints needs the port's sharding "
+            "rules, ROADMAP A12 (distribution)")
     B, S = x.shape[:2]
     q, k, v = _qkv(p, x, None, cfg)
     if positions is None:

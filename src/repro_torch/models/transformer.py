@@ -294,6 +294,11 @@ def _embed(params, tokens, cfg: ArchConfig):
 
 def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     """Returns (normed hidden (B, S, d), cache stacked over blocks)."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"final_hidden: remat={cfg.remat!r} needs a selective checkpoint "
+            "policy (the reference's dots_with_no_batch_dims_saveable), which "
+            "the port does not have; use 'block' or 'none'")
     x = _embed(params, batch["tokens"], cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []

@@ -180,6 +180,37 @@ def test_ssm_kernel_matches_plain(cuda, case, dtype):
         torch.testing.assert_close(s, want_s, rtol=3e-5, atol=3e-5)
 
 
+#: B, T, H, K, V, use_u: T of 1 and 17 (one ragged chunk of the kernel's 32
+#: tokens), K = 128 beside a V ragged against its 32-column blocks
+SSM_EDGE_CASES = [(1, 1, 2, 8, 8, True), (2, 17, 3, 16, 8, False), (1, 100, 2, 128, 40, True)]
+
+
+@pytest.mark.parametrize("harsh", [False, True], ids=["decay", "harsh_decay"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_EDGE_CASES, ids=[f"e{i}" for i in range(len(SSM_EDGE_CASES))])
+def test_ssm_kernel_edges_match_step_form(cuda, case, dtype, harsh):
+    """The chunked kernel at ragged and short T, and under a log decay of
+    about -20 a step (``harsh``: finite, where a factorisation about a
+    sub-chunk's start would overflow), against the step recurrence and
+    ``ssm_scan_blocked`` at test_ssm_kernel_matches_plain's limits.  (The
+    plain chunked form is itself further than 3e-5 from the step form
+    under the harsh decay, so it is not the yardstick there.)"""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_blocked
+    q, k, v, g, s0, u = _ssm_inputs((*case, 16, 8), getattr(torch, dtype), cuda, seed=7)
+    if harsh:
+        g = g * 0 - 20.0 + torch.randn(g.shape, device=cuda,
+                                       generator=torch.Generator(cuda).manual_seed(8))
+    before = ssm_kernel.launches
+    y, s = ssm_scan(q, k, v, g, u, s0, chunk=16, subchunk=8)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for want_y, want_s in (ssm_scan_ref(q, k, v, g, u, s0), ssm_scan_blocked(q, k, v, g, u, s0)):
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(s, want_s, rtol=3e-5, atol=3e-5)
+
+
 @pytest.mark.parametrize("use_u", [False, True], ids=["inclusive", "bonus"])
 def test_ssm_kernel_head_decay_and_io_dtype(cuda, use_u):
     """A (B, T, H, 1) log decay broadcast over K, and ``io_dtype=bfloat16``

@@ -22,7 +22,8 @@ from repro.models import transformer as jtf
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_blocked, ssm_scan_chunked,
+                                              ssm_scan_ref, tf32_round)
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_jax
@@ -199,6 +200,145 @@ def test_ssm_scan_io_dtype_matches_jax(use_u):
                                    chunk=16, subchunk=8, io_dtype=jnp.bfloat16)
     _close(y, jy)
     _close(s, js)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan_blocked: the Hopper kernel's blocking, on the CPU
+# ---------------------------------------------------------------------------
+#: B, T, H, K, V, use_u, use_s0: T of 1, 17 and 300 (ragged against the
+#: 32-token chunks), K != V, K = 128
+BLOCKED_CASES = [
+    (2, 17, 3, 8, 16, True, True),
+    (1, 1, 2, 16, 8, False, True),
+    (1, 300, 2, 16, 24, True, False),
+    (2, 64, 2, 128, 32, False, True),
+    (1, 45, 1, 128, 128, True, True),
+    (2, 300, 1, 32, 8, False, False),
+]
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["fp32", "tf32_split"])
+@pytest.mark.parametrize("case", BLOCKED_CASES, ids=[f"b{i}" for i in range(len(BLOCKED_CASES))])
+def test_ssm_scan_blocked_matches_jax(case, tf32):
+    """The kernel's algebra (chunks of 32, sub-chunks of 4, the state carried
+    once per chunk, exact diagonal blocks, off-diagonal blocks factorised
+    about the earlier sub-chunk's end), with and without the TF32 split
+    emulated, against JAX's step recurrence and chunked form and the port's
+    step recurrence, at the reference's SSM tolerance."""
+    B, T, H, K, V, use_u, use_s0 = case
+    q, k, v, g, s0, u = _inputs(B, T, H, K, V, seed=T + K + V)
+    tu = torch.from_numpy(u) if use_u else None
+    ju = jnp.asarray(u) if use_u else None
+    ts0 = torch.from_numpy(s0) if use_s0 else None
+    js0 = jnp.asarray(s0) if use_s0 else None
+    y, s = ssm_scan_blocked(*_t(q, k, v, g), u=tu, initial_state=ts0, chunk_len=32,
+                            sub_len=4, tf32_split=tf32)
+    assert y.shape == (B, T, H, V) and s.shape == (B, H, K, V)
+    for want in (jssm.ssm_scan_ref(*_j(q, k, v, g), u=ju, initial_state=js0),
+                 jssm.ssm_scan_chunked(*_j(q, k, v, g), u=ju, initial_state=js0,
+                                       chunk=16, subchunk=8),
+                 ssm_scan_ref(*_t(q, k, v, g), u=tu, initial_state=ts0)):
+        _close(y, want[0])
+        _close(s, want[1])
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["fp32", "tf32_split"])
+@pytest.mark.parametrize("use_u", [False, True], ids=["inclusive", "bonus"])
+def test_ssm_scan_blocked_harsh_decay(use_u, tf32):
+    """A log decay of about -20 a step: e^{-z} from a sub-chunk's start
+    overflows fp32 within a 16-token sub-chunk (the config's), so a factorisation about the start
+    gives inf and nan.  The blocked form multiplies only factors <= 1 and
+    gives finite values equal to the step recurrence (the reference's jnp
+    chunked form gives nan here, so it is left out)."""
+    q, k, v, _, s0, u = _inputs(2, 70, 2, 16, 8, seed=21)
+    g = (-20.0 + np.random.default_rng(22).standard_normal(q.shape)).astype(np.float32)
+    assert torch.isinf(torch.exp(-torch.cumsum(torch.from_numpy(g)[:, :16], 1))).any()
+    tu = torch.from_numpy(u) if use_u else None
+    y, s = ssm_scan_blocked(*_t(q, k, v, g), u=tu, initial_state=torch.from_numpy(s0),
+                            tf32_split=tf32)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    ry, rs = ssm_scan_ref(*_t(q, k, v, g), u=tu, initial_state=torch.from_numpy(s0))
+    _close(y, ry.numpy())
+    _close(s, rs.numpy())
+    jy, js = jssm.ssm_scan_ref(*_j(q, k, v, g), u=jnp.asarray(u) if use_u else None,
+                               initial_state=jnp.asarray(s0))
+    _close(y, jy)
+    _close(s, js)
+
+
+def test_ssm_scan_blocked_rejects_bad_blocking():
+    q, k, v, g, _, _ = _inputs(1, 8, 1, 8, 8, seed=4)
+    with pytest.raises(ValueError, match="must divide"):
+        ssm_scan_blocked(*_t(q, k, v, g), chunk_len=32, sub_len=5)
+
+
+def test_tf32_round():
+    """Round to nearest with ties away from zero, 10 mantissa bits kept."""
+    x = torch.tensor([1 + 2**-11, 1 + 2**-12, -(1 + 2**-11), 1 + 3 * 2**-11, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1.0, -(1 + 2**-10), 1 + 2 * 2**-10, 3.0, 0.0])
+    assert torch.equal(tf32_round(x), want)
+    r = tf32_round(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+def test_ssm_kernel_binding_matches_c_entry_point():
+    """The ctypes argument types bound once in kernel.py follow the C entry
+    point's parameters in csrc/ssm_scan.cu: a pointer per pointer, an int per
+    int."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    src = (Path(_build.PKG_DIR) / ssm_kernel.SOURCE).read_text()
+    sig = re.search(r'extern "C" int repro_ssm_scan_fwd\(([^)]*)\)', src).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert ssm_kernel.ARGTYPES == want
+
+
+def test_ssm_kernel_load_variant_binds_once(monkeypatch):
+    """``load_variant`` points the wrapper at another library and drops the
+    bound entry point; the entry point is typed once and reused, and None
+    goes back to the repo's own source."""
+    from repro_torch.kernels import _build
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+            self.repro_ssm_scan_fwd = type("Fn", (), {})()
+
+    opened, loaded = [], []
+    monkeypatch.setattr(ssm_kernel.ctypes, "CDLL", lambda path: opened.append(path) or Lib(path))
+    monkeypatch.setattr(_build, "load", lambda src: loaded.append(src) or Lib("repo"))
+    try:
+        ssm_kernel.load_variant("build/variant.so")
+        fn = ssm_kernel._fn()
+        assert opened == ["build/variant.so"] and loaded == []
+        assert fn.argtypes == ssm_kernel.ARGTYPES and ssm_kernel._fn() is fn
+        ssm_kernel.load_variant(None)
+        fn2 = ssm_kernel._fn()
+        assert loaded == [ssm_kernel.SOURCE] and fn2 is not fn and ssm_kernel._fn() is fn2
+    finally:
+        ssm_kernel.load_variant(None)
+
+
+def test_ssm_scan_script_checks_and_times_every_build():
+    """scripts/ssm_scan_torch.py holds every build with chip_smoke.py's own
+    ssm_check, whose cases include the harsh decay and T of 1 and 17, and
+    exits non-zero without CUDA (as here) before it builds anything."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    text = (root / "scripts" / "ssm_scan_torch.py").read_text()
+    assert "chip_smoke.ssm_check(" in text and "chip_smoke.ssm_times(" in text
+    proc = subprocess.run([sys.executable, str(root / "scripts" / "ssm_scan_torch.py")],
+                          capture_output=True, text=True, timeout=300,
+                          env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
 
 
 # ---------------------------------------------------------------------------

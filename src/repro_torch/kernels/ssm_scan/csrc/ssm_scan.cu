@@ -96,22 +96,26 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // all but the N latest groups landed
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Copies `rows` rows of `n` elements (global row stride gstride) into shared
 // memory (row stride sstride): 16 bytes a cp.async where every row start is
 // 16-byte aligned and n fills whole 16-byte pieces, else element by element.
-template <typename T>
+template <int NTH, typename T>
 __device__ __forceinline__ void stage_rows(T* sm, int sstride, const T* g, long long gstride,
                                            int rows, int n, bool vec) {
   if (vec) {
     constexpr int E = 16 / sizeof(T);
     const int per_row = n / E;
-    for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    for (int i = threadIdx.x; i < rows * per_row; i += NTH) {
       const int r = i / per_row, c = (i % per_row) * E;
       cp_async16(sm + r * sstride + c, g + r * gstride + c);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * n; i += NT) {
+    for (int i = threadIdx.x; i < rows * n; i += NTH) {
       const int r = i / n, c = i % n;
       sm[r * sstride + c] = g[r * gstride + c];
     }
@@ -243,10 +247,10 @@ __global__ void __launch_bounds__(NT, KP <= 64 ? 2 : 1) ssm_scan_kernel(const Pa
 
   auto issue = [&](int c) {
     const int t0 = c * L, rows = min(L, p.T - t0);
-    stage_rows<T>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
-    stage_rows<T>(rk, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
-    stage_rows<float>(rg, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
-    stage_rows<T>(rv, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
+    stage_rows<NT>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
+    stage_rows<NT>(rk, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
+    stage_rows<NT>(rg, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
+    stage_rows<NT>(rv, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
     cp_async_commit();
   };
 
@@ -451,31 +455,471 @@ __global__ void __launch_bounds__(NT, KP <= 64 ? 2 : 1) ssm_scan_kernel(const Pa
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (K <= 64): the same chunks, with y = qd S + A v and
+// the state's kd^T v on mma.sync m16n8k8 in TF32 with fp32 accumulators.
+// fp32 accuracy takes the 3-way split, x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi): x y = hi hi' + hi lo' + lo hi' to about 2^-22 of x y.
+// bf16 v is exact in TF32 (its lo is 0), so a product with it takes two.
+// Every operand is split once, by the phase that writes it to shared memory;
+// the state moves from accumulator tiles to operand layout there once per
+// chunk.  16 warps: the per-(sub-chunk, k) products take one task each, A's
+// 36 4 x 4 tiles take 16 (off-diagonal) or 8 (diagonal) lanes each, with
+// the u bonus on A's diagonal, and then warps 0-7 compute y while warps
+// 8-15, which hold the state, update it.  The off-diagonal tiles of A stay
+// fp32 FFMA: each pair of sub-chunks has its own decay between them.
+// At K = 128 the split operands would not fit in shared memory, and the
+// fp32 kernel above runs.
+// ---------------------------------------------------------------------------
+constexpr int NTM = 512;  // threads of the tensor-core kernel: 16 warps
+constexpr int NSTG = 3;   // its raw staging ring: chunk c + 2 lands while c computes
+
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ void split_store(float* hi, float* lo, float x) {
+  const float h = tf32(x);
+  *hi = h;
+  *lo = tf32(x - h);
+}
+__device__ __forceinline__ float exp_fast(float x) {  // e^x, ex2.approx: 2 ulp
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// d += a b for one m16n8k8 tile
+__device__ __forceinline__ void mma8(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+}
+// The A fragment (16 rows x 8 of depth) of an operand stored [depth][row]
+// with row stride w, from depth d0 and row r0; g = lane / 4, c = lane % 4.
+__device__ __forceinline__ void frag_a(float (&a)[4], const float* p, int w, int d0, int r0,
+                                       int g, int c) {
+  a[0] = p[(d0 + c) * w + r0 + g];
+  a[1] = p[(d0 + c) * w + r0 + g + 8];
+  a[2] = p[(d0 + c + 4) * w + r0 + g];
+  a[3] = p[(d0 + c + 4) * w + r0 + g + 8];
+}
+// The B fragment (8 of depth x 8 columns) of an operand stored [depth][col].
+__device__ __forceinline__ void frag_b(float (&b)[2], const float* p, int w, int d0, int c0,
+                                       int g, int c) {
+  b[0] = p[(d0 + c) * w + c0 + g];
+  b[1] = p[(d0 + c + 4) * w + c0 + g];
+}
+
+// One level of a sum across lanes that leaves each lane half of the values:
+// the lanes with `up` keep v[HALF..2 HALF), the others v[0..HALF), each
+// summed with its partner's (lane ^ mask) copy, into v[0..HALF).
+template <int HALF, int N>
+__device__ __forceinline__ void sum_half(float (&v)[N], bool up, int mask) {
+#pragma unroll
+  for (int e = 0; e < HALF; ++e) {
+    const float keep = up ? v[e + HALF] : v[e], send = up ? v[e] : v[e + HALF];
+    v[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+__device__ __forceinline__ void store2(float* y, float a, float b, int n, bool vec) {
+  if (vec && n == 2) {
+    *reinterpret_cast<float2*>(y) = make_float2(a, b);
+  } else {
+    y[0] = a;
+    if (n > 1) y[1] = b;
+  }
+}
+__device__ __forceinline__ void store2(bf16* y, float a, float b, int n, bool vec) {
+  if (vec && n == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(a, b);
+  } else {
+    y[0] = __float2bfloat16(a);
+    if (n > 1) y[1] = __float2bfloat16(b);
+  }
+}
+
+// Shared memory of the tensor-core kernel, in floats (hi / lo: the split
+// halves of an operand), then the raw staging in T.
+template <typename T, int KP>
+struct LayoutM {
+  static constexpr int KDW = KP + 8;             // row stride of kd: conflict-free fragments
+  static constexpr int QF = 0;                   // q, k, a: [k][t] (LP), the diagonal tiles
+  static constexpr int KF = QF + KP * LP;
+  static constexpr int AF = KF + KP * LP;
+  static constexpr int QP = AF + KP * LP;        // q', k': the off-diagonal tiles
+  static constexpr int KQ = QP + KP * LP;
+  static constexpr int QDH = KQ + KP * LP;       // qd, [k][t] (SW)
+  static constexpr int QDL = QDH + KP * SW;
+  static constexpr int KDH = QDL + KP * SW;      // kd, [t][k] (KDW)
+  static constexpr int KDL = KDH + L * KDW;
+  static constexpr int MX = KDL + L * KDW;       // M_ab, [pair][k]
+  static constexpr int DS = MX + NPAIR * KP;     // D_s, [s][k]
+  static constexpr int DL = DS + NS * KP;        // D_L, [k]
+  static constexpr int UU = DL + KP;             // u, [k]
+  static constexpr int ATH = UU + KP;            // A^T, [j][i] (SW)
+  static constexpr int ATL = ATH + L * SW;
+  static constexpr int VFH = ATL + L * SW;       // v, [t][j] (SW)
+  static constexpr int VFL = VFH + L * SW;
+  static constexpr int SSH = VFL + L * SW;       // S, [k][j] (SW)
+  static constexpr int SSL = SSH + KP * SW;
+  static constexpr int RG = SSL + KP * SW;       // raw g, NSTG x [t][k]
+  static constexpr int FLOATS = RG + NSTG * L * KP;
+  static constexpr int RAW = 2 * L * KP + L * VB;  // raw q, k, v of one stage, in T
+  static constexpr size_t BYTES = FLOATS * sizeof(float) + NSTG * RAW * sizeof(T);
+};
+
 template <typename T, int KP, bool U>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, KP>::BYTES;
-  static_assert(smem <= 232448, "more shared memory than a block may have");
-  static unsigned long long done = 0;  // devices whose limit is set
+__global__ void __launch_bounds__(NTM, 1) ssm_scan_kernel_mma(const Params p) {
+  using LY = LayoutM<T, KP>;
+  constexpr bool V_EXACT = sizeof(T) == 2;  // bf16 v: exact in TF32, no lo half
+  constexpr int NTASK = NS * KP;            // (sub-chunk, k) tasks: at most one a thread
+  constexpr int SMT = KP / 32;              // state m-tiles per state warp
+  constexpr int KDW = LY::KDW;
+  static_assert(NTASK <= NTM, "one prep task a thread");
+  const int j0 = blockIdx.x * VB, h = blockIdx.y, b = blockIdx.z;
+  const int vw = min(VB, p.V - j0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c4 = lane % 4;
+
+  extern __shared__ __align__(16) float sm[];
+  float *QF = sm + LY::QF, *KF = sm + LY::KF, *AF = sm + LY::AF, *QP = sm + LY::QP,
+        *KQ = sm + LY::KQ, *QDH = sm + LY::QDH, *QDL = sm + LY::QDL, *KDH = sm + LY::KDH,
+        *KDL = sm + LY::KDL, *MX = sm + LY::MX, *DS = sm + LY::DS, *DL = sm + LY::DL,
+        *UU = sm + LY::UU, *ATH = sm + LY::ATH, *ATL = sm + LY::ATL, *VFH = sm + LY::VFH,
+        *VFL = sm + LY::VFL, *SSH = sm + LY::SSH, *SSL = sm + LY::SSL;
+  T* const raw = reinterpret_cast<T*>(sm + LY::FLOATS);
+
+  const long long HK = static_cast<long long>(p.H) * p.K;
+  const long long HV = static_cast<long long>(p.H) * p.V;
+  const long long bth = static_cast<long long>(b) * p.T * p.H + h;
+  const T* gq = static_cast<const T*>(p.q) + bth * p.K;
+  const T* gk = static_cast<const T*>(p.k) + bth * p.K;
+  const float* gg = p.g + bth * p.K;
+  const T* gv = static_cast<const T*>(p.v) + bth * p.V + j0;
+  T* gy = static_cast<T*>(p.y) + bth * p.V + j0;
+  const long long sbase = (static_cast<long long>(b) * p.H + h) * p.K;
+
+  // warps 8-15 hold the state as accumulator tiles: columns 8 sn .. 8 sn + 7
+  // and row tiles (ws / 4) + 2 i; element e of tile i sits at row srow(i, e)
+  // and column scol(e)
+  const bool state_warp = warp >= 8;
+  const int ws = warp - 8, sn = ws & 3;
+  auto srow = [&](int i, int e) { return 16 * ((ws >> 2) + 2 * i) + g + (e >= 2 ? 8 : 0); };
+  auto scol = [&](int e) { return 8 * sn + 2 * c4 + (e & 1); };
+  float S[SMT][4] = {};
+  auto put_state = [&]() {
+#pragma unroll
+    for (int i = 0; i < SMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_store(SSH + srow(i, e) * SW + scol(e), SSL + srow(i, e) * SW + scol(e), S[i][e]);
+  };
+  if (state_warp) {
+#pragma unroll
+    for (int i = 0; i < SMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = srow(i, e), j = scol(e);
+        S[i][e] = (p.s0 != nullptr && kk < p.K && j < vw) ? p.s0[(sbase + kk) * p.V + j0 + j]
+                                                           : 0.f;
+      }
+    put_state();
+  }
+  for (int i = tid; i < L * SW; i += NTM) ATH[i] = ATL[i] = 0.f;  // above the diagonal: 0
+  for (int i = tid; i < KP; i += NTM)
+    UU[i] = (U && i < p.K) ? p.u[static_cast<long long>(h) * p.K + i] : 0.f;
+
+  const bool has_task = tid < NTASK;
+  const int ps = tid / KP, pk = tid % KP;  // this thread's task: sub-chunk ps, row pk of K
+
+  // chunk c's raw rows sit in stage c % NSTG; every issue commits one
+  // cp.async group, empty past the last chunk, so that the wait counts
+  auto issue = [&](int c) {
+    if (c * L < p.T) {
+      const int t0 = c * L, rows = min(L, p.T - t0), st = c % NSTG;
+      T* rq = raw + st * LY::RAW;
+      stage_rows<NTM>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
+      stage_rows<NTM>(rq + L * KP, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
+      stage_rows<NTM>(sm + LY::RG + st * L * KP, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
+      stage_rows<NTM>(rq + 2 * L * KP, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
+    }
+    cp_async_commit();
+  };
+
+  const int nchunks = (p.T + L - 1) / L;
+#pragma unroll
+  for (int c = 0; c < NSTG - 1; ++c) issue(c);
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * L, nt = min(L, p.T - t0);
+    const T* rq = raw + (c % NSTG) * LY::RAW;
+    const T* rk = rq + L * KP;
+    const T* rv = rk + L * KP;
+    const float* rg = sm + LY::RG + (c % NSTG) * L * KP;
+    cp_async_wait<NSTG - 2>();
+    __syncthreads();
+
+    // (1) per (sub-chunk, k): fp32 rows, a = exp(g), q' = q w, k' = k r, D_s
+    float qp[R], kp[R];
+    if (has_task) {
+      float qv[R], kv[R], av[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = ps * R + r;
+        const bool ok = t < nt && pk < p.K;  // past T or K: q = k = 0, a = 1 (inert)
+        qv[r] = ok ? to_f(rq[t * KP + pk]) : 0.f;
+        kv[r] = ok ? to_f(rk[t * KP + pk]) : 0.f;
+        av[r] = ok ? exp_fast(rg[t * KP + pk]) : 1.f;
+      }
+      st4(QF + pk * LP + ps * R, qv);
+      st4(KF + pk * LP + ps * R, kv);
+      st4(AF + pk * LP + ps * R, av);
+      float w = 1.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!U) w *= av[r];
+        qp[r] = qv[r] * w;
+        if (U) w *= av[r];
+      }
+      float rr = 1.f;
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        kp[r] = kv[r] * rr;
+        rr *= av[r];
+      }
+      st4(QP + pk * LP + ps * R, qp);
+      st4(KQ + pk * LP + ps * R, kp);
+      DS[ps * KP + pk] = w;
+    }
+    for (int e = tid; e < L * VB; e += NTM) {
+      const int t = e / VB, j = e % VB;
+      const float x = (t < nt && j < vw) ? to_f(rv[t * VB + j]) : 0.f;
+      if (V_EXACT) VFH[t * SW + j] = x;
+      else split_store(VFH + t * SW + j, VFL + t * SW + j, x);
+    }
+    __syncthreads();
+    issue(c + NSTG - 1);  // into the stage that chunk c - 1 read
+
+    // (2) qd = q' P_s and kd = k' Q_s, split; M_ab for (a = s, b < s); D_L
+    if (has_task) {
+      float d[NS], P = 1.f, Q = 1.f, DLk = 1.f;
+#pragma unroll
+      for (int cc = 0; cc < NS; ++cc) d[cc] = DS[cc * KP + pk];
+#pragma unroll
+      for (int cc = 0; cc < NS; ++cc) {
+        if (cc < ps) P *= d[cc];
+        if (cc > ps) Q *= d[cc];
+        DLk *= d[cc];
+      }
+      float qh[R], ql[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float x = qp[r] * P;
+        qh[r] = tf32(x);
+        ql[r] = tf32(x - qh[r]);
+        split_store(KDH + (ps * R + r) * KDW + pk, KDL + (ps * R + r) * KDW + pk, kp[r] * Q);
+      }
+      st4(QDH + pk * SW + ps * R, qh);
+      st4(QDL + pk * SW + ps * R, ql);
+      float m = 1.f;  // M_{ps, sb}, walking sb down from ps - 1
+#pragma unroll
+      for (int sb = NS - 2; sb >= 0; --sb) {
+        if (sb < ps) {
+          MX[(ps * (ps - 1) / 2 + sb) * KP + pk] = m;
+          m *= d[sb];
+        }
+      }
+      if (ps == 0) DL[pk] = DLk;
+    }
+    __syncthreads();
+
+    // (3) A: warps 0-13 the 28 off-diagonal tiles, 16 lanes each over
+    // k = 16 i + lane % 16; warps 14-15 the 8 diagonal tiles, 8 lanes each
+    // over k = 8 i + lane % 8; lanes sum by shuffles; A split as written
+    if (warp < 14) {
+      const int pair = tid / 16, sl = tid % 16;
+      int ta = 1;
+      while ((ta + 1) * ta / 2 <= pair) ++ta;  // pair = ta (ta - 1) / 2 + tb
+      const int tb = pair - ta * (ta - 1) / 2;
+      float v[16] = {};
+#pragma unroll
+      for (int i = 0; i < KP / 16; ++i) {
+        const int kk = sl + 16 * i;
+        const float m = MX[pair * KP + kk];
+        const float4 q4 = ld4(QP + kk * LP + ta * R), k4 = ld4(KQ + kk * LP + tb * R);
+        const float qs[4] = {q4.x * m, q4.y * m, q4.z * m, q4.w * m},
+                    ks[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[4 * i + j] = fmaf(qs[i], ks[j], v[4 * i + j]);
+      }
+      sum_half<8>(v, lane & 1, 1);
+      sum_half<4>(v, lane & 2, 2);
+      sum_half<2>(v, lane & 4, 4);
+      sum_half<1>(v, lane & 8, 8);
+      const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1) + (lane >> 3 & 1);
+      const int at = (tb * R + (e & 3)) * SW + ta * R + (e >> 2);
+      split_store(ATH + at, ATL + at, v[0]);
+    } else {
+      const int tile = (tid - 448) / 8, sl = tid % 8;
+      float v[16] = {};
+#pragma unroll
+      for (int i = 0; i < KP / 8; ++i) {
+        const int kk = sl + 8 * i;
+        const float4 q4 = ld4(QF + kk * LP + tile * R), k4 = ld4(KF + kk * LP + tile * R),
+                     a4 = ld4(AF + kk * LP + tile * R);
+        const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w},
+                    av[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float uk = UU[kk];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float x = qv[i];
+          // without u, i reads its own step; with u, the bonus q u k instead
+          v[5 * i] = fmaf(U ? x * uk : x, kv[i], v[5 * i]);
+#pragma unroll
+          for (int j = i - 1; j >= 0; --j) {
+            if (!U || j < i - 1) x *= av[j + 1];
+            v[4 * i + j] = fmaf(x, kv[j], v[4 * i + j]);
+          }
+        }
+      }
+      sum_half<8>(v, lane & 1, 1);
+      sum_half<4>(v, lane & 2, 2);
+      sum_half<2>(v, lane & 4, 4);
+      const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int at = (tile * R + ((e + x) & 3)) * SW + tile * R + ((e + x) >> 2);
+        split_store(ATH + at, ATL + at, v[x]);
+      }
+    }
+    __syncthreads();
+
+    if (!state_warp) {
+      // (4a) y: warp w the rows 16 (w % 2) .., columns 8 (w / 2) ..
+      const int mt = warp & 1, nt8 = 8 * (warp >> 1);
+      // five independent accumulators, so that no mma waits on the one before
+      float acc[5][4] = {};
+      float ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+      for (int d0 = 0; d0 < KP; d0 += 8) {
+        frag_a(ah, QDH, SW, d0, 16 * mt, g, c4);
+        frag_a(al, QDL, SW, d0, 16 * mt, g, c4);
+        frag_b(bh, SSH, SW, d0, nt8, g, c4);
+        frag_b(bl, SSL, SW, d0, nt8, g, c4);
+        mma8(acc[0], ah, bh);
+        mma8(acc[1], ah, bl);
+        mma8(acc[2], al, bh);
+      }
+#pragma unroll
+      for (int d0 = 0; d0 < L; d0 += 8) {
+        if (d0 < 16 * (mt + 1)) {  // A is 0 above the diagonal
+          frag_a(ah, ATH, SW, d0, 16 * mt, g, c4);
+          frag_a(al, ATL, SW, d0, 16 * mt, g, c4);
+          frag_b(bh, VFH, SW, d0, nt8, g, c4);
+          mma8(acc[3], ah, bh);
+          mma8(acc[4], al, bh);
+          if (!V_EXACT) {
+            frag_b(bl, VFL, SW, d0, nt8, g, c4);
+            mma8(acc[1], ah, bl);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][e] += (acc[1][e] + acc[2][e]) + (acc[3][e] + acc[4][e]);
+      const int j = nt8 + 2 * c4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = 16 * mt + g + 8 * half;
+        if (t < nt && j < vw)
+          store2(gy + (t0 + t) * HV + j, acc[0][2 * half], acc[0][2 * half + 1],
+                 min(2, vw - j), p.vec_y);
+      }
+    } else {
+      // (4b) the state: S <- D_L S + kd^T v
+#pragma unroll
+      for (int i = 0; i < SMT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) S[i][e] *= DL[srow(i, e)];
+      float ah[4], al[4], bh[2], bl[2], lo[SMT][4] = {};
+#pragma unroll
+      for (int d0 = 0; d0 < L; d0 += 8) {
+        frag_b(bh, VFH, SW, d0, 8 * sn, g, c4);
+        if (!V_EXACT) frag_b(bl, VFL, SW, d0, 8 * sn, g, c4);
+#pragma unroll
+        for (int i = 0; i < SMT; ++i) {
+          const int r0 = 16 * ((ws >> 2) + 2 * i);
+          frag_a(ah, KDH, KDW, d0, r0, g, c4);
+          frag_a(al, KDL, KDW, d0, r0, g, c4);
+          mma8(S[i], ah, bh);
+          mma8(lo[i], al, bh);
+          if (!V_EXACT) mma8(lo[i], ah, bl);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SMT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) S[i][e] += lo[i][e];
+    }
+    __syncthreads();
+    if (state_warp) put_state();  // (5) the next chunk's operand
+  }
+  if (state_warp) {
+#pragma unroll
+    for (int i = 0; i < SMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = srow(i, e), j = scol(e);
+        if (kk < p.K && j < vw) p.s_fin[(sbase + kk) * p.V + j0 + j] = S[i][e];
+      }
+  }
+}
+
+// Sets `kernel`'s shared-memory limit once per device (bit `dev` of `done`),
+// then launches it on a (V / 32, H, B) grid.
+template <typename Kernel>
+cudaError_t launch(Kernel* kernel, size_t smem, int threads, unsigned long long& done,
+                   const Params& p, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!(done >> dev & 1)) {
-    err = cudaFuncSetAttribute(ssm_scan_kernel<T, KP, U>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     done |= 1ull << dev;
   }
   const dim3 grid((p.V + VB - 1) / VB, p.H, p.B);
-  ssm_scan_kernel<T, KP, U><<<grid, NT, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int KP, bool U>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = LayoutM<T, KP>::BYTES;
+  static_assert(smem <= 232448, "more shared memory than a block may have");
+  static unsigned long long done = 0;
+  return launch(ssm_scan_kernel_mma<T, KP, U>, smem, NTM, done, p, stream);
+}
+
+template <typename T, int KP, bool U>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = Layout<T, KP>::BYTES;
+  static_assert(smem <= 232448, "more shared memory than a block may have");
+  static unsigned long long done = 0;
+  return launch(ssm_scan_kernel<T, KP, U>, smem, NT, done, p, stream);
 }
 
 template <typename T, bool U>
 cudaError_t dispatch_k(const Params& p, cudaStream_t stream) {
-  if (p.K <= 32) return launch<T, 32, U>(p, stream);
-  if (p.K <= 64) return launch<T, 64, U>(p, stream);
-  return launch<T, 128, U>(p, stream);
+  if (p.K <= 32) return launch_mma<T, 32, U>(p, stream);
+  if (p.K <= 64) return launch_mma<T, 64, U>(p, stream);
+  return launch_f32<T, 128, U>(p, stream);
 }
 
 template <typename T>

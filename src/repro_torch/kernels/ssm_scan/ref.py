@@ -61,8 +61,8 @@ def ssm_scan_blocked(q, k, v, log_decay, u=None, initial_state=None, *,
       A_ij = sum_k (q'_i M_ab)_k k'_jk, both sides <= 1;
     * y = qd S + A v + (q u k) v;  S <- D_L S + kd^T v.
 
-    ``tf32_split=True`` rounds the operands of qd S, A v, kd^T v and the
-    off-diagonal blocks of A as the tensor-core version does (``_mm``).
+    ``tf32_split=True`` rounds the operands of qd S, A v and kd^T v as the
+    tensor-core kernel does (``_mm``); it builds A itself in fp32.
     Returns (y in q's dtype, final state fp32).  Used by the tests and
     ``chip_smoke.py``, never by the main path."""
     L, R = chunk_len, sub_len
@@ -97,8 +97,8 @@ def ssm_scan_blocked(q, k, v, log_decay, u=None, initial_state=None, *,
         for sa in range(NS):
             m = torch.ones_like(D[:, :, 0])
             for sb in range(sa - 1, -1, -1):   # M_{a,b}, walking b down from a - 1
-                A[:, :, sa, :, sb] = _mm("bhik,bhjk->bhij", qp[:, :, sa] * m[:, :, None],
-                                         kp[:, :, sb], tf32_split)
+                A[:, :, sa, :, sb] = torch.einsum("bhik,bhjk->bhij",
+                                                  qp[:, :, sa] * m[:, :, None], kp[:, :, sb])
                 m = m * D[:, :, sb]
             # diagonal block: the exact decay between j and i's read point
             ad = a[:, :, sa]

@@ -139,7 +139,8 @@ SSM_SMALL_CASES = [
 #: the chunked kernel's edges, fp32 and bf16: T of 1 and 17 (one ragged
 #: chunk), a decay of about -20 a step (``harsh``: a factorisation about a
 #: sub-chunk's start would overflow there), K = 128 with V = 40 (a ragged
-#: 32-column block), and K = 18 (rows that cp.async cannot copy whole)
+#: 32-column block), K = 18 (rows that cp.async cannot copy whole), and
+#: enough heads for 64-column blocks with V = 72 (a ragged one)
 SSM_EDGE_CASES = [
     (1, 1, 2, 8, 8, True, 16, 8, "random"),
     (2, 17, 3, 16, 8, False, 16, 8, "random"),
@@ -147,6 +148,7 @@ SSM_EDGE_CASES = [
     (1, 45, 2, 8, 16, False, 16, 8, "harsh"),
     (1, 100, 2, 128, 40, True, 32, 16, "random"),
     (1, 33, 2, 18, 12, True, 16, 4, "random"),
+    (3, 40, 48, 16, 72, True, 16, 8, "random"),
 ]
 SSM_WIDE_CASES = [(2, 300, 64, 64, 64, True, 128, 16, "random")]
 SSM_MAIN_CASES = [(4, 512, 64, 64, 64, True, 128, 16, "random"),

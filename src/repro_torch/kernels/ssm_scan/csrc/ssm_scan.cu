@@ -20,16 +20,16 @@
 // 0.0321 / 0.0801 ms at 67 TFLOP/s: bound by operations, barely.  A kernel
 // in the step form cannot get near that: each step of S depends on the one
 // before it, so a block that walks T token by token waits on a chain of T
-// dependent updates (the previous version of this kernel spent about 170 ns
-// a step).  What the design does about it:
+// dependent updates (the first version of this kernel spent about 170 ns a
+// step).  What the design does about it:
 //  * the chunked form: T is walked in chunks of L = 32 tokens and the state
 //    is carried once per chunk, not once per token.  Within a chunk
 //        y = qd S + A v + (q u k) v,   S <- diag(D_L) S + kd^T v
 //    with qd = q e^{zq} (z the cumulative log decay from the chunk's start,
 //    zq = z - g with u), kd = k e^{z_L - z}, and A the L x L lower
-//    triangle of decayed q.k products.  The serial chain is T / L links,
-//    and each link is three small matrix products with ample independent
-//    work, done in fp32 on the CUDA cores (register-tiled FFMA);
+//    triangle of decayed q.k products.  The serial chain is T / L links of
+//    three small matrix products, and all that does not need the state
+//    (qd, kd, A) is computed off it;
 //  * no exponent is ever positive: every decay factor is a product of
 //    per-step decays a_t = exp(g_t) <= 1.  A is built from sub-chunks of
 //    R = 4 tokens: a diagonal R x R block takes the exact decay between j
@@ -38,17 +38,15 @@
 //    (q_i e^{zq_i - z_bend}) . (k_j e^{z_bend - z_j}), both sides <= 1, so a
 //    strong decay underflows harmlessly to 0 where a factorisation about a
 //    sub-chunk's start would overflow;
-//  * one block per (b, h, 32 columns of V): B H V / 32 blocks, 128 at B1 H64
-//    (one per SM) and 512 at B4 (two resident per SM at K <= 64).  A block
-//    stages a chunk's raw q, k, g and v rows once with cp.async for all its
-//    columns (the next chunk lands while this one computes), converts them
-//    to fp32 and takes exp(g) once per (t, k); 8 warps share the work;
-//  * per chunk: (1) per (sub-chunk, k) the running products q', k' and the
-//    sub-chunk decays; (2) qd, kd and the decays between sub-chunks; (3) A,
-//    as 4 x 4 tiles over K slices; (4) y (a depth-K + L product, K split
-//    over 4 lanes and reduced by shuffles) and the new state, which each
-//    thread keeps for its KP / 32 x 4 cells in registers; (5) the state to
-//    shared memory as the next chunk's operand;
+//  * a block stages a chunk's raw q, k, g and v rows once with cp.async for
+//    all its columns of V, ahead of use, converts them to fp32 and takes
+//    exp(g) once per (t, k);
+//  * K <= 64 (the served shapes) takes the tensor-core kernel below: the
+//    products on mma.sync in TF32 with a 3-way split for fp32 accuracy,
+//    warps specialised into a prep group, one chunk ahead, and a state
+//    group that holds S in registers for the whole run;
+//  * K up to 128 takes the first kernel: the same chunks with every product
+//    in fp32 FFMA, register-tiled, one block per (b, h, 32 columns of V);
 //  * T, K (<= 128) and V need not be multiples of anything: the ragged last
 //    chunk, rows of K past the data and columns past V are masked in the
 //    kernel, so no padding pass runs in device memory.  Offsets are 64-bit.
@@ -176,6 +174,15 @@ __device__ __forceinline__ void store_y(bf16* y, const float (&x)[4], int n, boo
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 kernel (K up to 128): one block of 8 warps per (b, h, 32 columns
+// of V); per chunk (1) per (sub-chunk, k) the running products q', k' and
+// the sub-chunk decays; (2) qd, kd and the decays between sub-chunks; (3) A
+// as 4 x 4 tiles over K slices; (4) y (a depth-K + L product, K split over 4
+// lanes and reduced by shuffles) and the new state, which each thread keeps
+// for its KP / 32 x 4 cells in registers; (5) the state to shared memory as
+// the next chunk's operand.
+// ---------------------------------------------------------------------------
 // Shared memory of one block, in floats, then the raw staging in T.
 template <typename T, int KP>
 struct Layout {
@@ -198,7 +205,7 @@ struct Layout {
 };
 
 template <typename T, int KP, bool U>
-__global__ void __launch_bounds__(NT, KP <= 64 ? 2 : 1) ssm_scan_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
   using LY = Layout<T, KP>;
   constexpr int KR = KP / 32;         // state rows per thread
   constexpr int TPT = NS * KP / NT;   // (sub-chunk, k) tasks per thread: 1, 2 or 4
@@ -456,23 +463,38 @@ __global__ void __launch_bounds__(NT, KP <= 64 ? 2 : 1) ssm_scan_kernel(const Pa
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel (K <= 64): the same chunks, with y = qd S + A v and
-// the state's kd^T v on mma.sync m16n8k8 in TF32 with fp32 accumulators.
-// fp32 accuracy takes the 3-way split, x = hi + lo with hi = tf32(x) and
-// lo = tf32(x - hi): x y = hi hi' + hi lo' + lo hi' to about 2^-22 of x y.
-// bf16 v is exact in TF32 (its lo is 0), so a product with it takes two.
-// Every operand is split once, by the phase that writes it to shared memory;
-// the state moves from accumulator tiles to operand layout there once per
-// chunk.  16 warps: the per-(sub-chunk, k) products take one task each, A's
-// 36 4 x 4 tiles take 16 (off-diagonal) or 8 (diagonal) lanes each, with
-// the u bonus on A's diagonal, and then warps 0-7 compute y while warps
-// 8-15, which hold the state, update it.  The off-diagonal tiles of A stay
-// fp32 FFMA: each pair of sub-chunks has its own decay between them.
-// At K = 128 the split operands would not fit in shared memory, and the
-// fp32 kernel above runs.
+// The tensor-core kernel (K <= 64).  The same chunks, with the products on
+// mma.sync m16n8k8 in TF32 with fp32 accumulators.  fp32 accuracy takes the
+// 3-way split, x = hi + lo with hi = tf32(x) and lo = tf32(x - hi):
+// x y = hi hi' + hi lo' + lo hi' to about 2^-22 of x y.  bf16 v is exact in
+// TF32 (its lo is 0), so a product with it takes two.
+//
+// The warps are specialised, so that the serial chain holds only the
+// products that need the state:
+//  * 12 prep warps walk the chunks one ahead: they stage the raw rows, take
+//    the per-(sub-chunk, k) products, then qd, kd, the decays and A (fp32
+//    FFMA in 4 x 4 tiles, with the u bonus on A's diagonal), and write them,
+//    split into hi and lo, to one of two operand buffers;
+//  * VB / 16 state warps each hold 16 columns of the transposed state S^T
+//    (16 x K, fp32) in accumulator tiles for the whole run.  Per chunk they
+//    take y^T = S^T qd^T + v^T A^T (S^T moves from accumulator to operand
+//    layout by shuffles inside each quad, no shared memory), store y, then
+//    S^T <- S^T diag(D_L) + v^T kd, and hand the buffer back.
+// Named barriers pass each buffer between the two groups (FULL: written,
+// EMPTY: read); the prep warps sync among themselves on a third.  A block
+// takes 64 columns of V when B H V / 64 blocks fill the card, else 32.
+// At K = 128 the operands would not fit in shared memory, and the fp32
+// kernel above runs.
 // ---------------------------------------------------------------------------
-constexpr int NTM = 512;  // threads of the tensor-core kernel: 16 warps
-constexpr int NSTG = 3;   // its raw staging ring: chunk c + 2 lands while c computes
+constexpr int NPREP = 384;  // threads of the prep warps: 12 warps, first in the block
+constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_PREP = 5;  // named barriers (+ buffer)
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 __device__ __forceinline__ float tf32(float x) {
   uint32_t r;
@@ -513,6 +535,21 @@ __device__ __forceinline__ void frag_b(float (&b)[2], const float* p, int w, int
   b[0] = p[(d0 + c) * w + c0 + g];
   b[1] = p[(d0 + c + 4) * w + c0 + g];
 }
+// An accumulator tile (16 x 8) as the A fragment of the next product: the
+// columns move inside each quad of lanes.
+__device__ __forceinline__ void acc_to_a(float (&a)[4], const float (&d)[4], int lane) {
+  const int src = (lane & ~3) | ((lane & 3) >> 1), odd = lane & 1;
+  float x[4], y[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[e] = __shfl_sync(0xffffffffu, d[e], src);
+    y[e] = __shfl_sync(0xffffffffu, d[e], src + 2);
+  }
+  a[0] = odd ? x[1] : x[0];
+  a[1] = odd ? x[3] : x[2];
+  a[2] = odd ? y[1] : y[0];
+  a[3] = odd ? y[3] : y[2];
+}
 
 // One level of a sum across lanes that leaves each lane half of the values:
 // the lanes with `up` keep v[HALF..2 HALF), the others v[0..HALF), each
@@ -526,363 +563,351 @@ __device__ __forceinline__ void sum_half(float (&v)[N], bool up, int mask) {
   }
 }
 
-__device__ __forceinline__ void store2(float* y, float a, float b, int n, bool vec) {
-  if (vec && n == 2) {
-    *reinterpret_cast<float2*>(y) = make_float2(a, b);
-  } else {
-    y[0] = a;
-    if (n > 1) y[1] = b;
-  }
-}
-__device__ __forceinline__ void store2(bf16* y, float a, float b, int n, bool vec) {
-  if (vec && n == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(a, b);
-  } else {
-    y[0] = __float2bfloat16(a);
-    if (n > 1) y[1] = __float2bfloat16(b);
-  }
-}
+__device__ __forceinline__ void store1(float* y, float x) { *y = x; }
+__device__ __forceinline__ void store1(bf16* y, float x) { *y = __float2bfloat16(x); }
 
-// Shared memory of the tensor-core kernel, in floats (hi / lo: the split
-// halves of an operand), then the raw staging in T.
-template <typename T, int KP>
+// Shared memory of the tensor-core kernel, in floats: two operand buffers
+// (hi / lo: the split halves of an operand), the prep warps' own arrays,
+// then the raw staging ring in T.
+template <typename T, int KP, int VBM>
 struct LayoutM {
-  static constexpr int KDW = KP + 8;             // row stride of kd: conflict-free fragments
-  static constexpr int QF = 0;                   // q, k, a: [k][t] (LP), the diagonal tiles
+  static constexpr int NSTG = sizeof(T) == 2 ? 2 : 1;  // raw stages (fp32: room for one)
+  static constexpr int KDW = KP + 8;             // row strides that keep fragments
+  static constexpr int VW = VBM + 8;             // free of bank conflicts
+  // one operand buffer, in floats from its start
+  static constexpr int QDH = 0;                  // qd, [k][t] (SW)
+  static constexpr int QDL = QDH + KP * SW;
+  static constexpr int KDH = QDL + KP * SW;      // kd, [t][k] (KDW)
+  static constexpr int KDL = KDH + L * KDW;
+  static constexpr int ATH = KDL + L * KDW;      // A^T, [s][t] (SW)
+  static constexpr int ATL = ATH + L * SW;
+  static constexpr int VFH = ATL + L * SW;       // v, [t][j] (VW)
+  static constexpr int VFL = VFH + L * VW;       // (fp32 v only)
+  static constexpr int DL = VFL + (sizeof(T) == 2 ? 0 : L * VW);  // D_L, [k]
+  static constexpr int BUF = DL + KP;
+  // the prep warps' arrays, after the two buffers
+  static constexpr int QF = 2 * BUF;             // q, k, a: [k][t] (LP), the diagonal tiles
   static constexpr int KF = QF + KP * LP;
   static constexpr int AF = KF + KP * LP;
   static constexpr int QP = AF + KP * LP;        // q', k': the off-diagonal tiles
   static constexpr int KQ = QP + KP * LP;
-  static constexpr int QDH = KQ + KP * LP;       // qd, [k][t] (SW)
-  static constexpr int QDL = QDH + KP * SW;
-  static constexpr int KDH = QDL + KP * SW;      // kd, [t][k] (KDW)
-  static constexpr int KDL = KDH + L * KDW;
-  static constexpr int MX = KDL + L * KDW;       // M_ab, [pair][k]
+  static constexpr int MX = KQ + KP * LP;        // M_ab, [pair][k]
   static constexpr int DS = MX + NPAIR * KP;     // D_s, [s][k]
-  static constexpr int DL = DS + NS * KP;        // D_L, [k]
-  static constexpr int UU = DL + KP;             // u, [k]
-  static constexpr int ATH = UU + KP;            // A^T, [j][i] (SW)
-  static constexpr int ATL = ATH + L * SW;
-  static constexpr int VFH = ATL + L * SW;       // v, [t][j] (SW)
-  static constexpr int VFL = VFH + L * SW;
-  static constexpr int SSH = VFL + L * SW;       // S, [k][j] (SW)
-  static constexpr int SSL = SSH + KP * SW;
-  static constexpr int RG = SSL + KP * SW;       // raw g, NSTG x [t][k]
+  static constexpr int UU = DS + NS * KP;        // u, [k]
+  static constexpr int RG = UU + KP;             // raw g, NSTG x [t][k]
   static constexpr int FLOATS = RG + NSTG * L * KP;
-  static constexpr int RAW = 2 * L * KP + L * VB;  // raw q, k, v of one stage, in T
+  static constexpr int RAW = 2 * L * KP + L * VBM;  // raw q, k, v of one stage, in T
   static constexpr size_t BYTES = FLOATS * sizeof(float) + NSTG * RAW * sizeof(T);
 };
 
-template <typename T, int KP, bool U>
-__global__ void __launch_bounds__(NTM, 1) ssm_scan_kernel_mma(const Params p) {
-  using LY = LayoutM<T, KP>;
+template <typename T, int KP, bool U, int VBM>
+__global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const Params p) {
+  using LY = LayoutM<T, KP, VBM>;
   constexpr bool V_EXACT = sizeof(T) == 2;  // bf16 v: exact in TF32, no lo half
-  constexpr int NTASK = NS * KP;            // (sub-chunk, k) tasks: at most one a thread
-  constexpr int SMT = KP / 32;              // state m-tiles per state warp
-  constexpr int KDW = LY::KDW;
-  static_assert(NTASK <= NTM, "one prep task a thread");
-  const int j0 = blockIdx.x * VB, h = blockIdx.y, b = blockIdx.z;
-  const int vw = min(VB, p.V - j0);
+  constexpr int NTH = NPREP + 2 * VBM;      // VBM / 16 state warps
+  constexpr int NTASK = NS * KP;            // (sub-chunk, k) tasks of the prep warps
+  constexpr int TPP = (NTASK + NPREP - 1) / NPREP;
+  constexpr int NKT = KP / 8;               // 8-column tiles of the state's K
+  constexpr int KDW = LY::KDW, VW = LY::VW, NSTG = LY::NSTG;
+  const int j0 = blockIdx.x * VBM, h = blockIdx.y, b = blockIdx.z;
+  const int vw = min(VBM, p.V - j0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c4 = lane % 4;
 
   extern __shared__ __align__(16) float sm[];
   float *QF = sm + LY::QF, *KF = sm + LY::KF, *AF = sm + LY::AF, *QP = sm + LY::QP,
-        *KQ = sm + LY::KQ, *QDH = sm + LY::QDH, *QDL = sm + LY::QDL, *KDH = sm + LY::KDH,
-        *KDL = sm + LY::KDL, *MX = sm + LY::MX, *DS = sm + LY::DS, *DL = sm + LY::DL,
-        *UU = sm + LY::UU, *ATH = sm + LY::ATH, *ATL = sm + LY::ATL, *VFH = sm + LY::VFH,
-        *VFL = sm + LY::VFL, *SSH = sm + LY::SSH, *SSL = sm + LY::SSL;
+        *KQ = sm + LY::KQ, *MX = sm + LY::MX, *DS = sm + LY::DS, *UU = sm + LY::UU;
   T* const raw = reinterpret_cast<T*>(sm + LY::FLOATS);
 
   const long long HK = static_cast<long long>(p.H) * p.K;
   const long long HV = static_cast<long long>(p.H) * p.V;
   const long long bth = static_cast<long long>(b) * p.T * p.H + h;
-  const T* gq = static_cast<const T*>(p.q) + bth * p.K;
-  const T* gk = static_cast<const T*>(p.k) + bth * p.K;
-  const float* gg = p.g + bth * p.K;
-  const T* gv = static_cast<const T*>(p.v) + bth * p.V + j0;
-  T* gy = static_cast<T*>(p.y) + bth * p.V + j0;
   const long long sbase = (static_cast<long long>(b) * p.H + h) * p.K;
+  const int nchunks = (p.T + L - 1) / L;
 
-  // warps 8-15 hold the state as accumulator tiles: columns 8 sn .. 8 sn + 7
-  // and row tiles (ws / 4) + 2 i; element e of tile i sits at row srow(i, e)
-  // and column scol(e)
-  const bool state_warp = warp >= 8;
-  const int ws = warp - 8, sn = ws & 3;
-  auto srow = [&](int i, int e) { return 16 * ((ws >> 2) + 2 * i) + g + (e >= 2 ? 8 : 0); };
-  auto scol = [&](int e) { return 8 * sn + 2 * c4 + (e & 1); };
-  float S[SMT][4] = {};
-  auto put_state = [&]() {
+  for (int i = tid; i < 2 * LY::BUF; i += NTH) sm[i] = 0.f;  // A^T above the diagonal: 0
+  for (int i = tid; i < KP; i += NTH)
+    UU[i] = (U && i < p.K) ? p.u[static_cast<long long>(h) * p.K + i] : 0.f;
+  __syncthreads();
+
+  if (tid < NPREP) {
+    // ---- the prep warps ----
+    const T* gq = static_cast<const T*>(p.q) + bth * p.K;
+    const T* gk = static_cast<const T*>(p.k) + bth * p.K;
+    const float* gg = p.g + bth * p.K;
+    const T* gv = static_cast<const T*>(p.v) + bth * p.V + j0;
+    // chunk c's raw rows sit in stage c % NSTG; every issue commits one
+    // cp.async group, empty past the last chunk, so that the wait counts
+    auto issue = [&](int c) {
+      if (c * L < p.T) {
+        const int t0 = c * L, rows = min(L, p.T - t0), st = c % NSTG;
+        T* rq = raw + st * LY::RAW;
+        stage_rows<NPREP>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
+        stage_rows<NPREP>(rq + L * KP, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
+        stage_rows<NPREP>(sm + LY::RG + st * L * KP, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
+        stage_rows<NPREP>(rq + 2 * L * KP, VBM, gv + t0 * HV, HV, rows, vw, p.vec_v);
+      }
+      cp_async_commit();
+    };
 #pragma unroll
-    for (int i = 0; i < SMT; ++i)
+    for (int c = 0; c < NSTG; ++c) issue(c);
+    for (int c = 0; c < nchunks; ++c) {
+      const int t0 = c * L, nt = min(L, p.T - t0), ob = c & 1;
+      float* buf = sm + ob * LY::BUF;
+      const T* rq = raw + (c % NSTG) * LY::RAW;
+      const T* rk = rq + L * KP;
+      const T* rv = rk + L * KP;
+      const float* rg = sm + LY::RG + (c % NSTG) * L * KP;
+      if (c >= 2) bar_sync(BAR_EMPTY + ob, NTH);  // the state warps have read this buffer
+      cp_async_wait<NSTG - 1>();
+      bar_sync(BAR_PREP, NPREP);
+
+      // (1) per (sub-chunk s, k): fp32 rows, a = exp(g), q' = q w, k' = k r, D_s
+      float qp[TPP][R], kp[TPP][R];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_store(SSH + srow(i, e) * SW + scol(e), SSL + srow(i, e) * SW + scol(e), S[i][e]);
-  };
-  if (state_warp) {
+      for (int i = 0; i < TPP; ++i) {
+        const int task = tid + i * NPREP, s = task / KP, k = task % KP;
+        if (task < NTASK) {
+          float qv[R], kv[R], av[R];
 #pragma unroll
-    for (int i = 0; i < SMT; ++i)
+          for (int r = 0; r < R; ++r) {
+            const int t = s * R + r;
+            const bool ok = t < nt && k < p.K;  // past T or K: q = k = 0, a = 1 (inert)
+            qv[r] = ok ? to_f(rq[t * KP + k]) : 0.f;
+            kv[r] = ok ? to_f(rk[t * KP + k]) : 0.f;
+            av[r] = ok ? exp_fast(rg[t * KP + k]) : 1.f;
+          }
+          st4(QF + k * LP + s * R, qv);
+          st4(KF + k * LP + s * R, kv);
+          st4(AF + k * LP + s * R, av);
+          float w = 1.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (!U) w *= av[r];
+            qp[i][r] = qv[r] * w;
+            if (U) w *= av[r];
+          }
+          float rr = 1.f;
+#pragma unroll
+          for (int r = R - 1; r >= 0; --r) {
+            kp[i][r] = kv[r] * rr;
+            rr *= av[r];
+          }
+          st4(QP + k * LP + s * R, qp[i]);
+          st4(KQ + k * LP + s * R, kp[i]);
+          DS[s * KP + k] = w;
+        }
+      }
+      for (int e = tid; e < L * VBM; e += NPREP) {
+        const int t = e / VBM, j = e % VBM;
+        const float x = (t < nt && j < vw) ? to_f(rv[t * VBM + j]) : 0.f;
+        if (V_EXACT) buf[LY::VFH + t * VW + j] = x;
+        else split_store(buf + LY::VFH + t * VW + j, buf + LY::VFL + t * VW + j, x);
+      }
+      bar_sync(BAR_PREP, NPREP);
+      issue(c + NSTG);  // into the stage just read
+
+      // (2) qd = q' P_s and kd = k' Q_s, split; M_ab for (a = s, b < s); D_L
+#pragma unroll
+      for (int i = 0; i < TPP; ++i) {
+        const int task = tid + i * NPREP, s = task / KP, k = task % KP;
+        if (task < NTASK) {
+          float d[NS], P = 1.f, Q = 1.f, DLk = 1.f;
+#pragma unroll
+          for (int cc = 0; cc < NS; ++cc) d[cc] = DS[cc * KP + k];
+#pragma unroll
+          for (int cc = 0; cc < NS; ++cc) {
+            if (cc < s) P *= d[cc];
+            if (cc > s) Q *= d[cc];
+            DLk *= d[cc];
+          }
+          float qh[R], ql[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float x = qp[i][r] * P;
+            qh[r] = tf32(x);
+            ql[r] = tf32(x - qh[r]);
+            split_store(buf + LY::KDH + (s * R + r) * KDW + k,
+                        buf + LY::KDL + (s * R + r) * KDW + k, kp[i][r] * Q);
+          }
+          st4(buf + LY::QDH + k * SW + s * R, qh);
+          st4(buf + LY::QDL + k * SW + s * R, ql);
+          float m = 1.f;  // M_{s, sb}, walking sb down from s - 1
+#pragma unroll
+          for (int sb = NS - 2; sb >= 0; --sb) {
+            if (sb < s) {
+              MX[(s * (s - 1) / 2 + sb) * KP + k] = m;
+              m *= d[sb];
+            }
+          }
+          if (s == 0) buf[LY::DL + k] = DLk;
+        }
+      }
+      bar_sync(BAR_PREP, NPREP);
+
+      // (3) A: lanes 0-223 the 28 off-diagonal tiles, 8 lanes each over
+      // k = 8 i + lane % 8; lanes 224-351 the 8 diagonal tiles, 16 lanes each
+      // over k = 16 i + lane % 16; lanes sum by shuffles; A split as written
+      if (tid < 224) {
+        const int pair = tid / 8, sl = tid % 8;
+        int ta = 1;
+        while ((ta + 1) * ta / 2 <= pair) ++ta;  // pair = ta (ta - 1) / 2 + tb
+        const int tb = pair - ta * (ta - 1) / 2;
+        float v[16] = {};
+#pragma unroll
+        for (int i = 0; i < KP / 8; ++i) {
+          const int kk = sl + 8 * i;
+          const float m = MX[pair * KP + kk];
+          const float4 q4 = ld4(QP + kk * LP + ta * R), k4 = ld4(KQ + kk * LP + tb * R);
+          const float qs[4] = {q4.x * m, q4.y * m, q4.z * m, q4.w * m},
+                      ks[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+          for (int i2 = 0; i2 < 4; ++i2)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[4 * i2 + j] = fmaf(qs[i2], ks[j], v[4 * i2 + j]);
+        }
+        sum_half<8>(v, lane & 1, 1);
+        sum_half<4>(v, lane & 2, 2);
+        sum_half<2>(v, lane & 4, 4);
+        const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int at = (tb * R + ((e + x) & 3)) * SW + ta * R + ((e + x) >> 2);
+          split_store(buf + LY::ATH + at, buf + LY::ATL + at, v[x]);
+        }
+      } else if (tid < 352) {
+        const int tile = (tid - 224) / 16, sl = tid % 16;
+        float v[16] = {};
+#pragma unroll
+        for (int i = 0; i < KP / 16; ++i) {
+          const int kk = sl + 16 * i;
+          const float4 q4 = ld4(QF + kk * LP + tile * R), k4 = ld4(KF + kk * LP + tile * R),
+                       a4 = ld4(AF + kk * LP + tile * R);
+          const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w},
+                      av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const float uk = UU[kk];
+#pragma unroll
+          for (int i2 = 0; i2 < R; ++i2) {
+            float x = qv[i2];
+            // without u, i reads its own step; with u, the bonus q u k instead
+            v[5 * i2] = fmaf(U ? x * uk : x, kv[i2], v[5 * i2]);
+#pragma unroll
+            for (int j = i2 - 1; j >= 0; --j) {
+              if (!U || j < i2 - 1) x *= av[j + 1];
+              v[4 * i2 + j] = fmaf(x, kv[j], v[4 * i2 + j]);
+            }
+          }
+        }
+        sum_half<8>(v, lane & 1, 1);
+        sum_half<4>(v, lane & 2, 2);
+        sum_half<2>(v, lane & 4, 4);
+        sum_half<1>(v, lane & 8, 8);
+        const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1) + (lane >> 3 & 1);
+        const int at = (tile * R + (e & 3)) * SW + tile * R + (e >> 2);
+        split_store(buf + LY::ATH + at, buf + LY::ATL + at, v[0]);
+      }
+      bar_arrive(BAR_FULL + ob, NTH);  // chunk c's operands are written
+    }
+    cp_async_wait<0>();
+  } else {
+    // ---- the state warps: S^T rows (columns of V) 16 sw .. 16 sw + 15 ----
+    const int sw = warp - NPREP / 32, jr = 16 * sw;
+    T* gy = static_cast<T*>(p.y) + bth * p.V + j0;
+    // S[n]: the tile of K columns 8 n .. 8 n + 7; element e at row
+    // jr + g + 8 (e / 2), column 8 n + 2 c4 + e % 2
+    float S[NKT][4];
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kk = srow(i, e), j = scol(e);
-        S[i][e] = (p.s0 != nullptr && kk < p.K && j < vw) ? p.s0[(sbase + kk) * p.V + j0 + j]
+        const int j = jr + g + 8 * (e >> 1), kk = 8 * n + 2 * c4 + (e & 1);
+        S[n][e] = (p.s0 != nullptr && kk < p.K && j < vw) ? p.s0[(sbase + kk) * p.V + j0 + j]
                                                            : 0.f;
       }
-    put_state();
-  }
-  for (int i = tid; i < L * SW; i += NTM) ATH[i] = ATL[i] = 0.f;  // above the diagonal: 0
-  for (int i = tid; i < KP; i += NTM)
-    UU[i] = (U && i < p.K) ? p.u[static_cast<long long>(h) * p.K + i] : 0.f;
-
-  const bool has_task = tid < NTASK;
-  const int ps = tid / KP, pk = tid % KP;  // this thread's task: sub-chunk ps, row pk of K
-
-  // chunk c's raw rows sit in stage c % NSTG; every issue commits one
-  // cp.async group, empty past the last chunk, so that the wait counts
-  auto issue = [&](int c) {
-    if (c * L < p.T) {
-      const int t0 = c * L, rows = min(L, p.T - t0), st = c % NSTG;
-      T* rq = raw + st * LY::RAW;
-      stage_rows<NTM>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
-      stage_rows<NTM>(rq + L * KP, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
-      stage_rows<NTM>(sm + LY::RG + st * L * KP, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
-      stage_rows<NTM>(rq + 2 * L * KP, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
-    }
-    cp_async_commit();
-  };
-
-  const int nchunks = (p.T + L - 1) / L;
+    for (int c = 0; c < nchunks; ++c) {
+      const int t0 = c * L, nt = min(L, p.T - t0), ob = c & 1;
+      const float* buf = sm + ob * LY::BUF;
+      bar_sync(BAR_FULL + ob, NTH);
+      // y^T (16 columns of V x 32 tokens) = S^T qd^T + v^T A^T, the lo
+      // products in their own accumulators
+      float acc[4][4] = {}, acl[4][4] = {};
 #pragma unroll
-  for (int c = 0; c < NSTG - 1; ++c) issue(c);
-  for (int c = 0; c < nchunks; ++c) {
-    const int t0 = c * L, nt = min(L, p.T - t0);
-    const T* rq = raw + (c % NSTG) * LY::RAW;
-    const T* rk = rq + L * KP;
-    const T* rv = rk + L * KP;
-    const float* rg = sm + LY::RG + (c % NSTG) * L * KP;
-    cp_async_wait<NSTG - 2>();
-    __syncthreads();
-
-    // (1) per (sub-chunk, k): fp32 rows, a = exp(g), q' = q w, k' = k r, D_s
-    float qp[R], kp[R];
-    if (has_task) {
-      float qv[R], kv[R], av[R];
+      for (int n = 0; n < NKT; ++n) {
+        float ah[4], al[4];
+        acc_to_a(ah, S[n], lane);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int t = ps * R + r;
-        const bool ok = t < nt && pk < p.K;  // past T or K: q = k = 0, a = 1 (inert)
-        qv[r] = ok ? to_f(rq[t * KP + pk]) : 0.f;
-        kv[r] = ok ? to_f(rk[t * KP + pk]) : 0.f;
-        av[r] = ok ? exp_fast(rg[t * KP + pk]) : 1.f;
-      }
-      st4(QF + pk * LP + ps * R, qv);
-      st4(KF + pk * LP + ps * R, kv);
-      st4(AF + pk * LP + ps * R, av);
-      float w = 1.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (!U) w *= av[r];
-        qp[r] = qv[r] * w;
-        if (U) w *= av[r];
-      }
-      float rr = 1.f;
-#pragma unroll
-      for (int r = R - 1; r >= 0; --r) {
-        kp[r] = kv[r] * rr;
-        rr *= av[r];
-      }
-      st4(QP + pk * LP + ps * R, qp);
-      st4(KQ + pk * LP + ps * R, kp);
-      DS[ps * KP + pk] = w;
-    }
-    for (int e = tid; e < L * VB; e += NTM) {
-      const int t = e / VB, j = e % VB;
-      const float x = (t < nt && j < vw) ? to_f(rv[t * VB + j]) : 0.f;
-      if (V_EXACT) VFH[t * SW + j] = x;
-      else split_store(VFH + t * SW + j, VFL + t * SW + j, x);
-    }
-    __syncthreads();
-    issue(c + NSTG - 1);  // into the stage that chunk c - 1 read
-
-    // (2) qd = q' P_s and kd = k' Q_s, split; M_ab for (a = s, b < s); D_L
-    if (has_task) {
-      float d[NS], P = 1.f, Q = 1.f, DLk = 1.f;
-#pragma unroll
-      for (int cc = 0; cc < NS; ++cc) d[cc] = DS[cc * KP + pk];
-#pragma unroll
-      for (int cc = 0; cc < NS; ++cc) {
-        if (cc < ps) P *= d[cc];
-        if (cc > ps) Q *= d[cc];
-        DLk *= d[cc];
-      }
-      float qh[R], ql[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x = qp[r] * P;
-        qh[r] = tf32(x);
-        ql[r] = tf32(x - qh[r]);
-        split_store(KDH + (ps * R + r) * KDW + pk, KDL + (ps * R + r) * KDW + pk, kp[r] * Q);
-      }
-      st4(QDH + pk * SW + ps * R, qh);
-      st4(QDL + pk * SW + ps * R, ql);
-      float m = 1.f;  // M_{ps, sb}, walking sb down from ps - 1
-#pragma unroll
-      for (int sb = NS - 2; sb >= 0; --sb) {
-        if (sb < ps) {
-          MX[(ps * (ps - 1) / 2 + sb) * KP + pk] = m;
-          m *= d[sb];
+        for (int e = 0; e < 4; ++e) {
+          const float x = ah[e];
+          ah[e] = tf32(x);
+          al[e] = tf32(x - ah[e]);
         }
-      }
-      if (ps == 0) DL[pk] = DLk;
-    }
-    __syncthreads();
-
-    // (3) A: warps 0-13 the 28 off-diagonal tiles, 16 lanes each over
-    // k = 16 i + lane % 16; warps 14-15 the 8 diagonal tiles, 8 lanes each
-    // over k = 8 i + lane % 8; lanes sum by shuffles; A split as written
-    if (warp < 14) {
-      const int pair = tid / 16, sl = tid % 16;
-      int ta = 1;
-      while ((ta + 1) * ta / 2 <= pair) ++ta;  // pair = ta (ta - 1) / 2 + tb
-      const int tb = pair - ta * (ta - 1) / 2;
-      float v[16] = {};
 #pragma unroll
-      for (int i = 0; i < KP / 16; ++i) {
-        const int kk = sl + 16 * i;
-        const float m = MX[pair * KP + kk];
-        const float4 q4 = ld4(QP + kk * LP + ta * R), k4 = ld4(KQ + kk * LP + tb * R);
-        const float qs[4] = {q4.x * m, q4.y * m, q4.z * m, q4.w * m},
-                    ks[4] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[4 * i + j] = fmaf(qs[i], ks[j], v[4 * i + j]);
-      }
-      sum_half<8>(v, lane & 1, 1);
-      sum_half<4>(v, lane & 2, 2);
-      sum_half<2>(v, lane & 4, 4);
-      sum_half<1>(v, lane & 8, 8);
-      const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1) + (lane >> 3 & 1);
-      const int at = (tb * R + (e & 3)) * SW + ta * R + (e >> 2);
-      split_store(ATH + at, ATL + at, v[0]);
-    } else {
-      const int tile = (tid - 448) / 8, sl = tid % 8;
-      float v[16] = {};
-#pragma unroll
-      for (int i = 0; i < KP / 8; ++i) {
-        const int kk = sl + 8 * i;
-        const float4 q4 = ld4(QF + kk * LP + tile * R), k4 = ld4(KF + kk * LP + tile * R),
-                     a4 = ld4(AF + kk * LP + tile * R);
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w},
-                    av[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float uk = UU[kk];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          float x = qv[i];
-          // without u, i reads its own step; with u, the bonus q u k instead
-          v[5 * i] = fmaf(U ? x * uk : x, kv[i], v[5 * i]);
-#pragma unroll
-          for (int j = i - 1; j >= 0; --j) {
-            if (!U || j < i - 1) x *= av[j + 1];
-            v[4 * i + j] = fmaf(x, kv[j], v[4 * i + j]);
-          }
-        }
-      }
-      sum_half<8>(v, lane & 1, 1);
-      sum_half<4>(v, lane & 2, 2);
-      sum_half<2>(v, lane & 4, 4);
-      const int e = 8 * (lane & 1) + 4 * (lane >> 1 & 1) + 2 * (lane >> 2 & 1);
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int at = (tile * R + ((e + x) & 3)) * SW + tile * R + ((e + x) >> 2);
-        split_store(ATH + at, ATL + at, v[x]);
-      }
-    }
-    __syncthreads();
-
-    if (!state_warp) {
-      // (4a) y: warp w the rows 16 (w % 2) .., columns 8 (w / 2) ..
-      const int mt = warp & 1, nt8 = 8 * (warp >> 1);
-      // five independent accumulators, so that no mma waits on the one before
-      float acc[5][4] = {};
-      float ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-      for (int d0 = 0; d0 < KP; d0 += 8) {
-        frag_a(ah, QDH, SW, d0, 16 * mt, g, c4);
-        frag_a(al, QDL, SW, d0, 16 * mt, g, c4);
-        frag_b(bh, SSH, SW, d0, nt8, g, c4);
-        frag_b(bl, SSL, SW, d0, nt8, g, c4);
-        mma8(acc[0], ah, bh);
-        mma8(acc[1], ah, bl);
-        mma8(acc[2], al, bh);
-      }
-#pragma unroll
-      for (int d0 = 0; d0 < L; d0 += 8) {
-        if (d0 < 16 * (mt + 1)) {  // A is 0 above the diagonal
-          frag_a(ah, ATH, SW, d0, 16 * mt, g, c4);
-          frag_a(al, ATL, SW, d0, 16 * mt, g, c4);
-          frag_b(bh, VFH, SW, d0, nt8, g, c4);
-          mma8(acc[3], ah, bh);
-          mma8(acc[4], al, bh);
-          if (!V_EXACT) {
-            frag_b(bl, VFL, SW, d0, nt8, g, c4);
-            mma8(acc[1], ah, bl);
-          }
+        for (int tt = 0; tt < 4; ++tt) {
+          float bh[2], bl[2];
+          frag_b(bh, buf + LY::QDH, SW, 8 * n, 8 * tt, g, c4);
+          frag_b(bl, buf + LY::QDL, SW, 8 * n, 8 * tt, g, c4);
+          mma8(acc[tt], ah, bh);
+          mma8(acl[tt], ah, bl);
+          mma8(acl[tt], al, bh);
         }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[0][e] += (acc[1][e] + acc[2][e]) + (acc[3][e] + acc[4][e]);
-      const int j = nt8 + 2 * c4;
+      for (int ks = 0; ks < 4; ++ks) {
+        float vh[4], vl[4];
+        frag_a(vh, buf + LY::VFH, VW, 8 * ks, jr, g, c4);
+        if (!V_EXACT) frag_a(vl, buf + LY::VFL, VW, 8 * ks, jr, g, c4);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = 16 * mt + g + 8 * half;
-        if (t < nt && j < vw)
-          store2(gy + (t0 + t) * HV + j, acc[0][2 * half], acc[0][2 * half + 1],
-                 min(2, vw - j), p.vec_y);
-      }
-    } else {
-      // (4b) the state: S <- D_L S + kd^T v
-#pragma unroll
-      for (int i = 0; i < SMT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) S[i][e] *= DL[srow(i, e)];
-      float ah[4], al[4], bh[2], bl[2], lo[SMT][4] = {};
-#pragma unroll
-      for (int d0 = 0; d0 < L; d0 += 8) {
-        frag_b(bh, VFH, SW, d0, 8 * sn, g, c4);
-        if (!V_EXACT) frag_b(bl, VFL, SW, d0, 8 * sn, g, c4);
-#pragma unroll
-        for (int i = 0; i < SMT; ++i) {
-          const int r0 = 16 * ((ws >> 2) + 2 * i);
-          frag_a(ah, KDH, KDW, d0, r0, g, c4);
-          frag_a(al, KDL, KDW, d0, r0, g, c4);
-          mma8(S[i], ah, bh);
-          mma8(lo[i], al, bh);
-          if (!V_EXACT) mma8(lo[i], ah, bl);
+        for (int tt = ks; tt < 4; ++tt) {  // A is 0 above the diagonal
+          float bh[2], bl[2];
+          frag_b(bh, buf + LY::ATH, SW, 8 * ks, 8 * tt, g, c4);
+          frag_b(bl, buf + LY::ATL, SW, 8 * ks, 8 * tt, g, c4);
+          mma8(acc[tt], vh, bh);
+          mma8(acl[tt], vh, bl);
+          if (!V_EXACT) mma8(acl[tt], vl, bh);
         }
       }
 #pragma unroll
-      for (int i = 0; i < SMT; ++i)
+      for (int tt = 0; tt < 4; ++tt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) S[i][e] += lo[i][e];
+        for (int e = 0; e < 4; ++e) {
+          const int j = jr + g + 8 * (e >> 1), t = 8 * tt + 2 * c4 + (e & 1);
+          if (t < nt && j < vw) store1(gy + (t0 + t) * HV + j, acc[tt][e] + acl[tt][e]);
+        }
+      // S^T <- S^T diag(D_L) + v^T kd
+#pragma unroll
+      for (int n = 0; n < NKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) S[n][e] *= buf[LY::DL + 8 * n + 2 * c4 + (e & 1)];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        float vh[4], vl[4];
+        frag_a(vh, buf + LY::VFH, VW, 8 * ks, jr, g, c4);
+        if (!V_EXACT) frag_a(vl, buf + LY::VFL, VW, 8 * ks, jr, g, c4);
+#pragma unroll
+        for (int n = 0; n < NKT; ++n) {
+          float bh[2], bl[2];
+          frag_b(bh, buf + LY::KDH, KDW, 8 * ks, 8 * n, g, c4);
+          frag_b(bl, buf + LY::KDL, KDW, 8 * ks, 8 * n, g, c4);
+          mma8(S[n], vh, bh);
+          mma8(S[n], vh, bl);
+          if (!V_EXACT) mma8(S[n], vl, bh);
+        }
+      }
+      if (c + 2 < nchunks) bar_arrive(BAR_EMPTY + ob, NTH);  // the prep warps may refill it
     }
-    __syncthreads();
-    if (state_warp) put_state();  // (5) the next chunk's operand
-  }
-  if (state_warp) {
 #pragma unroll
-    for (int i = 0; i < SMT; ++i)
+    for (int n = 0; n < NKT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kk = srow(i, e), j = scol(e);
-        if (kk < p.K && j < vw) p.s_fin[(sbase + kk) * p.V + j0 + j] = S[i][e];
+        const int j = jr + g + 8 * (e >> 1), kk = 8 * n + 2 * c4 + (e & 1);
+        if (kk < p.K && j < vw) p.s_fin[(sbase + kk) * p.V + j0 + j] = S[n][e];
       }
   }
 }
 
 // Sets `kernel`'s shared-memory limit once per device (bit `dev` of `done`),
-// then launches it on a (V / 32, H, B) grid.
+// then launches it on a (V / vb, H, B) grid.
 template <typename Kernel>
-cudaError_t launch(Kernel* kernel, size_t smem, int threads, unsigned long long& done,
+cudaError_t launch(Kernel* kernel, size_t smem, int threads, int vb, unsigned long long& done,
                    const Params& p, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -894,17 +919,44 @@ cudaError_t launch(Kernel* kernel, size_t smem, int threads, unsigned long long&
     if (err != cudaSuccess) return err;
     done |= 1ull << dev;
   }
-  const dim3 grid((p.V + VB - 1) / VB, p.H, p.B);
+  const dim3 grid((p.V + vb - 1) / vb, p.H, p.B);
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int KP, bool U>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = LayoutM<T, KP>::BYTES;
+// The SM count of the current device, read once per device.
+cudaError_t sm_count(int* sms) {
+  static int count[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = count[dev];
+  return cudaSuccess;
+}
+
+template <typename T, int KP, bool U, int VBM>
+cudaError_t launch_mma_vb(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = LayoutM<T, KP, VBM>::BYTES;
   static_assert(smem <= 232448, "more shared memory than a block may have");
   static unsigned long long done = 0;
-  return launch(ssm_scan_kernel_mma<T, KP, U>, smem, NTM, done, p, stream);
+  return launch(ssm_scan_kernel_mma<T, KP, U, VBM>, smem, NPREP + 2 * VBM, VBM, done, p,
+                stream);
+}
+
+// 64 columns of V a block where that fills the card, else 32
+template <typename T, int KP, bool U>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long blocks64 = static_cast<long long>(p.B) * p.H * ((p.V + 63) / 64);
+  return blocks64 >= sms ? launch_mma_vb<T, KP, U, 64>(p, stream)
+                         : launch_mma_vb<T, KP, U, 32>(p, stream);
 }
 
 template <typename T, int KP, bool U>
@@ -912,7 +964,7 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, KP>::BYTES;
   static_assert(smem <= 232448, "more shared memory than a block may have");
   static unsigned long long done = 0;
-  return launch(ssm_scan_kernel<T, KP, U>, smem, NT, done, p, stream);
+  return launch(ssm_scan_kernel<T, KP, U>, smem, NT, VB, done, p, stream);
 }
 
 template <typename T, bool U>

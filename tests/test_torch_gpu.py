@@ -181,8 +181,10 @@ def test_ssm_kernel_matches_plain(cuda, case, dtype):
 
 
 #: B, T, H, K, V, use_u: T of 1 and 17 (one ragged chunk of the kernel's 32
-#: tokens), K = 128 beside a V ragged against its 32-column blocks
-SSM_EDGE_CASES = [(1, 1, 2, 8, 8, True), (2, 17, 3, 16, 8, False), (1, 100, 2, 128, 40, True)]
+#: tokens), K = 128 beside a V ragged against its 32-column blocks, and
+#: enough heads for 64-column blocks with V = 72
+SSM_EDGE_CASES = [(1, 1, 2, 8, 8, True), (2, 17, 3, 16, 8, False), (1, 100, 2, 128, 40, True),
+                  (3, 40, 48, 16, 72, True)]
 
 
 @pytest.mark.parametrize("harsh", [False, True], ids=["decay", "harsh_decay"])

@@ -484,7 +484,9 @@ __global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
 // EMPTY: read); the prep warps sync among themselves on a third.  A block
 // takes 64 columns of V when B H V / 64 blocks fill the card, else 32.
 // At K = 128 the operands would not fit in shared memory, and the fp32
-// kernel above runs.
+// kernel above runs.  ptxas: the bf16 instances (the served ones) spill
+// nothing; fp32 inputs at K = 64 spill 4-12 bytes, since fp32 v adds a lo
+// half to every v fragment and a thread has at most 128 registers here.
 // ---------------------------------------------------------------------------
 constexpr int NPREP = 384;  // threads of the prep warps: 12 warps, first in the block
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_PREP = 5;  // named barriers (+ buffer)

@@ -108,9 +108,17 @@ __device__ __forceinline__ void stage_rows(T* sm, int sstride, const T* g, long 
   if (vec) {
     constexpr int E = 16 / sizeof(T);
     const int per_row = n / E;
-    for (int i = threadIdx.x; i < rows * per_row; i += NTH) {
-      const int r = i / per_row, c = (i % per_row) * E;
-      cp_async16(sm + r * sstride + c, g + r * gstride + c);
+    if ((per_row & (per_row - 1)) == 0) {  // a power of two: shifts, no division
+      const int sh = __ffs(per_row) - 1;
+      for (int i = threadIdx.x; i < rows << sh; i += NTH) {
+        const int r = i >> sh, c = (i & (per_row - 1)) * E;
+        cp_async16(sm + r * sstride + c, g + r * gstride + c);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * per_row; i += NTH) {
+        const int r = i / per_row, c = (i % per_row) * E;
+        cp_async16(sm + r * sstride + c, g + r * gstride + c);
+      }
     }
   } else {
     for (int i = threadIdx.x; i < rows * n; i += NTH) {

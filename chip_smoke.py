@@ -16,11 +16,12 @@
    decay of about -20 a step, K 128 and 18), the full-width rwkv6 head
    shape at T 300, 512 and 5120, y and the final state);
 4. times each kernel, its plain version and its bound at the main-path
-   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``); for flash
-   attention also the device time per call from ``torch.profiler``, for
-   the kernel and SDPA alike, and their ratio (where the window cuts, SDPA
-   with the band as a mask computes the kernel's function, and SDPA with
-   ``is_causal`` over every causal pair is timed beside it);
+   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``); for
+   ssm_scan and flash attention also the device time per call from
+   ``torch.profiler``, for flash of the kernel and SDPA alike, and their
+   ratio (where the window cuts, SDPA with the band as a mask computes the
+   kernel's function, and SDPA with ``is_causal`` over every causal pair
+   is timed beside it);
 5. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
    a seed) through ``repro_torch.launch.serve`` (``serve``): 4 requests x
    512-token prompts to 32 tokens, then 1 request x a 5120-token prompt to

@@ -45,8 +45,21 @@
    then a restart from the step-4 checkpoint; it checks the loss and
    gradients against plain-attention steps in bf16 and fp32, the kernel
    launches per step and per checkpoint, the restored bytes, the digests
-   on disk against numpy, and that a flipped byte fails the restore;
-8. prints one JSON line of per-kernel launches (by path), times and
+   on disk against numpy, and that a flipped byte fails the restore; the
+   restart's save is replicated (``--replicate-to s3``) by a third-party
+   ``TransferService`` task to an emulated object store in host memory:
+   the task must succeed with integrity on, every leaf's lanesum32 at the
+   destination must equal the digest the card took at save time, the
+   mirror must restore onto the card byte for byte, and a byte flipped in
+   the mirror must fail its restore (``replication`` in ``train``);
+8. trains full-width rwkv6-7b cut to 2 layers the same way, without
+   checkpoints (``train_rwkv``): 2 scan launches per layer and step (the
+   forward, then the block remat's recompute; the backward is the plain
+   chunked form's), no flash or checksum launch, one step's per-token
+   losses and gradients through the kernel in bf16 and fp32 against the
+   plain scan's, the warm training rate and a profiled step's device time
+   split into the scan kernel, the plain scan backward, AdamW and the rest;
+9. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -55,6 +68,7 @@ around it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -115,6 +129,11 @@ PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 #: and the time limit), batch x tokens, injected failure before FAIL_AT
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FAIL_AT, CKPT_EVERY = 2, 2, 2048, 6, 5, 2
 WARM_STEPS = 12  # unprofiled warm steps timed one by one for the training rate
+#: the emulated object store the training restart replicates its save to
+MIRROR_PROVIDER = "s3"
+#: rwkv6 training: full width cut to TRAIN_LAYERS layers, TRAIN_BATCH x
+#: TRAIN_SEQ tokens a step, this many steps through run_training
+RWKV_TRAIN_STEPS = 3
 #: checksum_check cases: tests/test_kernels.py's six shape and dtype pairs
 CHECKSUM_CASES = [((1024,), "float32"), ((8, 128), "float32"), ((1000,), "float32"),
                   ((333,), "int32"), ((64, 9), "bfloat16"), ((5,), "float32")]
@@ -325,7 +344,7 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
             row["library_is_causal_ms"] = time_ms(causal_lib, torch)
             timed.append(("library_is_causal_device_ms", causal_lib))
         for key, fn in timed:
-            kernels, n, _, _ = profile_device(
+            kernels, n, _, _, _ = profile_device(
                 torch, lambda: [fn() for _ in range(PROFILED_CALLS)],
                 complete=lambda counts: counts and all(
                     c % PROFILED_CALLS == 0 for c in counts.values()))
@@ -382,7 +401,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
             reset_flash_counts(fa_kernel)
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
             pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
-            by_name, pre_n, _, _ = profile_device(
+            by_name, pre_n, _, _, _ = profile_device(
                 torch, prefill, complete=lambda counts: sum(
                     c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
         check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
@@ -642,7 +661,7 @@ def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True):
         t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
         call = lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g, u, None)
         ms = time_ms(call, torch)
-        kernels, _, _, _ = profile_device(
+        kernels, _, _, _, _ = profile_device(
             torch, lambda: [call() for _ in range(PROFILED_CALLS)],
             complete=lambda counts: sum(c for n, c in counts.items()
                                         if "ssm_scan_kernel" in n) == PROFILED_CALLS)
@@ -665,8 +684,11 @@ def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True):
 def profile_device(torch, fn, spans=(), complete=None):
     """torch.profiler over one call of ``fn``: ({kernel name: device ms},
     kernel launches, {span: device ms}, {span: device ms as key_averages
-    books it}) for the record_function ranges named in ``spans``, which are
-    kept out of the kernels.  The device's busy time is the sum of the
+    books it}, {span: kernel ms inside it}) for the record_function ranges
+    named in ``spans``, which are kept out of the kernels.  A span's device
+    ms is its extent on the device's timeline, idle gaps included; the
+    kernel ms inside it sums the kernels that start within that extent
+    (one stream), its busy time.  The device's busy time is the sum of the
     kernels'.  The profiler can drop kernel records of a run; with
     ``complete``, a predicate on {kernel name: records}, the run is repeated
     until the records pass it, PROFILE_TRIES times at most."""
@@ -676,14 +698,17 @@ def profile_device(torch, fn, spans=(), complete=None):
             fn()
             torch.cuda.synchronize()
         kernels, counts, span_ms = {}, {}, {r: 0.0 for r in spans}
+        extents, starts = {r: [] for r in spans}, []
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 ms = ev.time_range.elapsed_us() / 1e3
                 if ev.name in span_ms:
                     span_ms[ev.name] += ms
+                    extents[ev.name].append((ev.time_range.start, ev.time_range.end))
                 else:
                     kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
                     counts[ev.name] = counts.get(ev.name, 0) + 1
+                    starts.append((ev.time_range.start, ms))
         if complete is None or complete(counts):
             break
     else:
@@ -692,7 +717,9 @@ def profile_device(torch, fn, spans=(), complete=None):
     cpu_side = {avg.key: getattr(avg, "device_time_total",
                                  getattr(avg, "cuda_time_total", 0.0)) / 1e3
                 for avg in prof.key_averages() if avg.key in span_ms}
-    return kernels, sum(counts.values()), span_ms, cpu_side
+    busy_in = {r: sum(ms for at, ms in starts if any(a <= at < b for a, b in extents[r]))
+               for r in spans}
+    return kernels, sum(counts.values()), span_ms, cpu_side, busy_in
 
 
 def wall_ms(torch, fn, reps):
@@ -704,6 +731,23 @@ def wall_ms(torch, fn, reps):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls
+
+
+@contextlib.contextmanager
+def plain_scan(ssm_ops, ssm_ref):
+    """The plain chunked scan in place of ``ops.ssm_scan`` for the block, as
+    a test's monkeypatch would swap it in."""
+    def scan(q, k, v, log_decay, u=None, initial_state=None, *, chunk, subchunk, io_dtype,
+             shard_constrain):
+        return ssm_ref.ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
+                                        chunk=chunk, subchunk=min(subchunk, chunk),
+                                        io_dtype=io_dtype, shard_constrain=shard_constrain)
+
+    kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, scan
+    try:
+        yield
+    finally:
+        ssm_ops.ssm_scan = kernel_scan
 
 
 def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
@@ -726,13 +770,6 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
     from repro_torch.models.convert import flatten
     from repro_torch.runtime.steps import make_serve_step
     fa_kernel, cs_kernel, ssm_kernel = kernels
-
-    def plain_scan(q, k, v, log_decay, u=None, initial_state=None, *, chunk=128, subchunk=16,
-                   io_dtype=torch.float32, shard_constrain=False):
-        return ssm_ref.ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
-                                        chunk=chunk, subchunk=min(subchunk, chunk),
-                                        io_dtype=io_dtype, shard_constrain=shard_constrain)
-
     results, launches = [], 0
     for B, S, gen_len in RWKV_WORKLOADS:
         args = serve.parse_args(["--arch", RWKV_ARCH, "--no-scaled-down", "--requests", str(B),
@@ -779,13 +816,13 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
             check(n_pre == cfg.n_layers and n_dec == 0,
                   f"scan launches: {n_pre} in a prefill, {n_dec} in a decode step")
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
-            by_name, pre_n, _, _ = profile_device(
+            by_name, pre_n, _, _, _ = profile_device(
                 torch, prefill, complete=lambda counts: sum(
                     c for name, c in counts.items() if "ssm_scan_kernel" in name) == cfg.n_layers)
             pre_busy = sum(by_name.values())
             pre_ssm = sum(ms for name, ms in by_name.items() if "ssm_scan_kernel" in name)
             dec_wall = statistics.median(wall_ms(torch, lambda: step(params, cache, tok, S), 8))
-            by_name, dec_n, _, _ = profile_device(torch, lambda: step(params, cache, tok, S))
+            by_name, dec_n, _, _, _ = profile_device(torch, lambda: step(params, cache, tok, S))
             dec_busy = sum(by_name.values())
             del lg, cache
 
@@ -801,14 +838,10 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
             logits_bf16_io, _, _ = bf16_io.prefill(params, {"tokens": tokens})
         check(ssm_kernel.launches == 2 * cfg.n_layers,
               f"{ssm_kernel.launches} scan launches in two fp32 prefills")
-        kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, plain_scan
         ssm_kernel.launches = 0
-        try:
-            with torch.inference_mode():
-                logits_plain, _, _ = api.prefill(params, {"tokens": tokens})
-                logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
-        finally:
-            ssm_ops.ssm_scan = kernel_scan
+        with plain_scan(ssm_ops, ssm_ref), torch.inference_mode():
+            logits_plain, _, _ = api.prefill(params, {"tokens": tokens})
+            logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
         check(ssm_kernel.launches == 0, "the plain-scan prefill launched the kernel")
         diff = (logits - logits_plain).abs().max().item()
         err = (logits - logits_exact).abs().max().item()
@@ -1039,11 +1072,14 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
         del restored
         torch.cuda.empty_cache()
 
-        # the restart, as after a preemption: fresh objects, restore, steps 5-6
-        s2 = launch_train.setup(launch_train.parse_args(argv))
+        # the restart, as after a preemption: fresh objects, restore, steps
+        # 5-6; its save at step 6 is replicated to an emulated object store
+        s2 = launch_train.setup(launch_train.parse_args(
+            argv + ["--replicate-to", MIRROR_PROVIDER]))
         reset_flash_counts(fa_kernel)
         cs_kernel.launches = ssm_kernel.launches = 0
-        run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt)
+        run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt,
+                            replicator=s2.replicator)
         fa2, cs2, sync2 = fa_kernel.launches, cs_kernel.launches, fa_kernel.sync_launches
         check(ssm_kernel.launches == 0, "the restart launched the scan kernel")
         check(fa_kernel.tma_launches == fa2, f"the restart took the mma.sync flash path {sync2} "
@@ -1060,6 +1096,12 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
               and all(math.isfinite(v) for _, v in logged), f"losses and grad norms {logged}")
         check(abs(run1.losses[0][1] - numerics["loss_kernel"]) <= 1e-3 * numerics["loss_kernel"],
               f"first step's loss {run1.losses[0][1]} vs {numerics['loss_kernel']}")
+
+        # the replica of step 6, before the byte flipped on disk below
+        cs_kernel.launches = 0
+        replication = mirror_check(torch, s2, state, os.path.join(tmp, "ckpt", f"step_{TRAIN_STEPS}"),
+                                   n_leaves, cs_kernel)
+        mirror_cs = cs_kernel.launches
 
         # a flipped byte in a written object fails the restore
         latest = os.path.join(tmp, "ckpt", f"step_{TRAIN_STEPS}")
@@ -1097,15 +1139,105 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
                "median_step_s_after_first": med, "steps_in_median": len(step_s),
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
                "saves": saves1 + saves2, "restore_s": restore_s,
+               "replication": replication,
                "max_memory_allocated": peak_mem, "digests_on_disk": on_disk,
                "corruption": corrupt}
         emit({"phase": "train", **row})
         prof = train_profile(torch, s2, state, batch, fa_kernel)
-        return fa1 + fa2, cs1 + cs2, {"train_numerics": numerics["flash_mma_sync_launches"],
-                                      "train": sync1 + sync2,
-                                      "train_profile": prof["flash_mma_sync_launches"]}
+        return fa1 + fa2, cs1 + cs2, mirror_cs, {
+            "train_numerics": numerics["flash_mma_sync_launches"], "train": sync1 + sync2,
+            "train_profile": prof["flash_mma_sync_launches"]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mirror_check(torch, s, state, root, n_leaves, cs_kernel):
+    """The replica the restart's replicator made of the save in ``root``:
+    one task, for step TRAIN_STEPS, SUCCEEDED with integrity on; each
+    leaf's lanesum32 at the destination (the service's verified per-file
+    digest for a leaf with an object of its own, the host hasher over its
+    slice of the mirrored bundle otherwise) equal to the manifest digest
+    the card took at save time; the mirror restored onto the card (each
+    leaf digested there again) byte for byte equal to the leaves on disk;
+    and one byte flipped in the mirror failing the restore of its leaf."""
+    from repro_torch.ckpt import get_bytes, put_bytes, restore_checkpoint
+    from repro_torch.core.errors import IntegrityError
+    from repro_torch.core.integrity import checksum_bytes
+    from repro_torch.models.convert import flatten
+    rep = s.replicator
+    check([step for step, _, _ in rep.done] == [TRAIN_STEPS],
+          f"replicated steps {[step for step, _, _ in rep.done]}, want [{TRAIN_STEPS}]")
+    _, task, wall_s = rep.done[0]
+    with open(os.path.join(root, "manifest.json"), "rb") as f:
+        manifest_raw = f.read()
+    manifest = json.loads(manifest_raw)
+    n_files = len(os.listdir(root))
+    check(task.status == task.SUCCEEDED, f"replication {task.status}: {task.events[-5:]}")
+    check(task.stats.integrity_failures == 0 and all(f.ok and f.checksum for f in task.files)
+          and task.stats.files_done == task.stats.files_total == n_files,
+          f"replication files: {task.stats}")
+    by_file = {os.path.basename(f.dst): f.checksum for f in task.files}
+    conn, base = rep.mirror.connector, f"{rep.mirror.path}/step_{TRAIN_STEPS}"
+    cred = rep.service.creds.lookup(rep.mirror.endpoint_id)
+    session = conn.start(cred)
+    try:
+        check(get_bytes(conn, session, f"{base}/manifest.json") == manifest_raw,
+              "the mirror's manifest differs from the one on disk")
+        at_dst = {path: by_file[meta["object"]] for path, meta in manifest["objects"].items()}
+        at_dst.update({path: checksum_bytes(get_bytes(
+            conn, session, f"{base}/{meta['object']}", offset=meta["offset"],
+            length=meta["length"]), "lanesum32") for path, meta in manifest["bundles"].items()})
+    finally:
+        conn.destroy(session)
+    entries = {**manifest["objects"], **manifest["bundles"]}
+    check(len(at_dst) == n_leaves and all(at_dst[p] == m["checksum"] for p, m in entries.items()),
+          f"destination digests differ from the card's: "
+          f"{ {p: (at_dst[p], m['checksum']) for p, m in entries.items() if at_dst[p] != m['checksum']} }")
+
+    before = cs_kernel.launches
+    t0 = time.perf_counter()
+    restored, step = restore_checkpoint(state, conn, rep.mirror.path, TRAIN_STEPS, credential=cred)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_cs = cs_kernel.launches - before
+    check(step == TRAIN_STEPS, f"restored step {step} from the mirror")
+    check(restore_cs == n_leaves, f"{restore_cs} checksum launches restoring the mirror, "
+                                  f"want {n_leaves}")
+    for path, got in flatten(restored).items():
+        want = torch.frombuffer(bytearray(read_object(root, entries[path])), dtype=torch.uint8)
+        check(got.device == flatten(state)[path].device
+              and torch.equal(got.reshape(-1).view(torch.uint8).cpu(), want),
+              f"{path} restored from the mirror differs from the leaf on disk")
+    del restored
+
+    # a byte flipped in the mirror fails the restore of its leaf
+    path = "params/embed/table"
+    obj = f"{base}/{manifest['objects'][path]['object']}"
+    session = conn.start(cred)
+    try:
+        data = bytearray(get_bytes(conn, session, obj))
+        data[12345] ^= 0x10
+        put_bytes(conn, session, obj, bytes(data))
+    finally:
+        conn.destroy(session)
+    del data
+    try:
+        restore_checkpoint({"params": {"embed": {"table": flatten(state)[path]}}}, conn,
+                           rep.mirror.path, TRAIN_STEPS, credential=cred)
+        check(False, "restore of a corrupted mirror did not raise")
+    except IntegrityError as exc:
+        corrupt = str(exc)
+    check(path in corrupt, f"mirror corruption reported as {corrupt!r}")
+    return {"provider": MIRROR_PROVIDER, "step": TRAIN_STEPS, "status": task.status,
+            "integrity": True, "checksum_algorithm": "lanesum32", "files": n_files,
+            "bytes": task.stats.bytes_done, "replicate_wall_s": wall_s,
+            "host_mb_per_s": task.stats.bytes_done / wall_s / 1e6,
+            "model_s": task.stats.actual_model_seconds,
+            "leaf_digests_checked": len(at_dst),
+            "leaves_by_service_digest": len(manifest["objects"]),
+            "leaves_by_host_hasher": len(manifest["bundles"]),
+            "restore_s": restore_s, "restore_checksum_launches": restore_cs,
+            "corruption": corrupt}
 
 
 def train_profile(torch, s, state, batch, fa_kernel):
@@ -1124,7 +1256,7 @@ def train_profile(torch, s, state, batch, fa_kernel):
     walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
     wall = statistics.median(walls)
     ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
-    kernels, n_launches, spans, cpu_side = profile_device(
+    kernels, n_launches, spans, cpu_side, busy_in = profile_device(
         torch, lambda: step_fn(state, batch), ranges)
     fa_counts = flash_counts(fa_kernel)
     want = 2 * cfg.n_layers * (WARM_STEPS + 2)
@@ -1153,10 +1285,191 @@ def train_profile(torch, s, state, batch, fa_kernel):
            "kernel_launches": n_launches, "flash_launches": fa_counts[0],
            "flash_mma_sync_launches": fa_counts[2],
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
+           "device_busy_ms_in_range": busy_in,
            "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},
            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
     emit({"phase": "train_profile", **row})
     return row
+
+
+def rwkv_numerics(torch, s, params, batch, kernels, ssm_ops, ssm_ref, device):
+    """The kernel-path loss and gradients of the first batch, in bf16 and
+    in fp32 compute, against an fp32 step through the plain chunked scan,
+    beside a bf16 step through the plain scan.  As train_numerics does for
+    dense: per gradient leaf, and for the per-token losses, each kernel
+    path's relative L2 error may be LOGIT_SLACK times the plain bf16 one's;
+    its mean loss may be off by LOGIT_SLACK times the plain bf16 path's RMS
+    per-token error."""
+    from repro_torch.models.convert import flatten, unflatten
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.steps import value_and_grad
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    cfg = s.api.cfg
+    exact = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+    params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
+    reset_flash_counts(fa_kernel)
+    cs_kernel.launches = ssm_kernel.launches = 0
+    loss_k, _, g_k = value_and_grad(s.api, params, batch)
+    n_k = ssm_kernel.launches
+    loss_k32, _, g_k32 = value_and_grad(exact, params32, batch)
+    n_k32 = ssm_kernel.launches - n_k
+    check(n_k == n_k32 == 2 * cfg.n_layers,
+          f"scan launches {n_k} (bf16) / {n_k32} (fp32) in one loss and gradient, want "
+          f"{2 * cfg.n_layers} (forward, then the remat recompute)")
+    check(flash_counts(fa_kernel) == (0, 0, 0, 0) and cs_kernel.launches == 0,
+          f"rwkv training launched flash {flash_counts(fa_kernel)} / checksum "
+          f"{cs_kernel.launches} times")
+    tok_k, _ = token_losses(s.api, params, batch, torch)
+    tok_k32, _ = token_losses(exact, params32, batch, torch)
+    ssm_kernel.launches = 0
+    with plain_scan(ssm_ops, ssm_ref):
+        loss_p, _, g_p = value_and_grad(s.api, params, batch)
+        loss_e, _, g_e = value_and_grad(exact, params32, batch)
+        tok_p, _ = token_losses(s.api, params, batch, torch)
+        tok_e, terms = token_losses(exact, params32, batch, torch)
+    check(ssm_kernel.launches == 0, "a plain-scan step launched the kernel")
+    g_k, g_k32, g_p = flatten(g_k), flatten(g_k32), flatten(g_p)
+    leaves = {}
+    for path, ge in flatten(g_e).items():
+        rk, rk32, rp = (rel_l2(g[path], ge) for g in (g_k, g_k32, g_p))
+        check(all(math.isfinite(r) for r in (rk, rk32, rp)), f"gradient of {path}: not finite")
+        leaves[path] = {"kernel": rk, "kernel_fp32": rk32, "plain_bf16": rp,
+                        "ratio": rk / rp, "ratio_fp32": rk32 / rp}
+    toks = {"kernel": rel_l2(tok_k, tok_e), "kernel_fp32": rel_l2(tok_k32, tok_e),
+            "plain_bf16": rel_l2(tok_p, tok_e)}
+    rms_p = (tok_p - tok_e).pow(2).mean().sqrt().item()
+    row = {"scan_launches": n_k, "scan_launches_fp32": n_k32,
+           "loss_kernel": loss_k.item(), "loss_kernel_fp32": loss_k32.item(),
+           "loss_plain_bf16": loss_p.item(), "loss_fp32": loss_e.item(),
+           "ln_vocab": math.log(cfg.vocab_size), "loss_terms_fp32": terms,
+           "loss_err_kernel": abs(loss_k.item() - loss_e.item()),
+           "loss_err_kernel_fp32": abs(loss_k32.item() - loss_e.item()),
+           "loss_err_plain_bf16": abs(loss_p.item() - loss_e.item()),
+           "token_loss_rms_err_plain_bf16": rms_p, "token_loss_rel_l2": toks,
+           "max_grad_ratio": max(v["ratio"] for v in leaves.values()),
+           "max_grad_ratio_fp32": max(v["ratio_fp32"] for v in leaves.values()),
+           "grad_rel_l2": leaves}
+    emit({"phase": "train_rwkv_numerics", **row})
+    for key in ("kernel", "kernel_fp32"):
+        check(toks[key] <= LOGIT_SLACK * toks["plain_bf16"], f"per-token losses: {toks}")
+        check(row[f"loss_err_{key}"] <= LOGIT_SLACK * rms_p,
+              f"loss ({key}) {row}; plain bf16 RMS {rms_p}")
+        for path, v in leaves.items():
+            check(v[key] <= LOGIT_SLACK * v["plain_bf16"], f"gradient of {path}: {v}")
+    del g_k, g_k32, g_p, g_e, params32, exact
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_rwkv(torch, launch_train, kernels, ssm_ops, ssm_ref, device):
+    """The rwkv6 training path: full-width rwkv6-7b cut to TRAIN_LAYERS
+    layers through repro_torch.launch.train, TRAIN_BATCH x TRAIN_SEQ tokens
+    a step, no checkpoint (the dense run covers that path): the numerics of
+    one step, RWKV_TRAIN_STEPS steps of run_training, then the warm rate
+    and a profiled step as train_profile does, with the step's device time
+    split into the scan kernel, the plain scan backward (its
+    record_function range), AdamW and the rest."""
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.models.convert import flatten
+    from repro_torch.runtime.steps import make_train_state, make_train_step
+    from repro_torch.runtime.train import run_training
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rwkv_")
+    try:
+        argv = ["--arch", RWKV_ARCH, "--no-scaled-down", "--n-layers", str(TRAIN_LAYERS),
+                "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                "--steps", str(RWKV_TRAIN_STEPS), "--data-records", "64", "--log-every", "1",
+                "--device", str(device), "--seed", "0", "--ckpt-dir", tmp]
+        s = launch_train.setup(launch_train.parse_args(argv))
+        cfg = s.api.cfg
+        check(cfg == dataclasses.replace(launch_train.get_config(RWKV_ARCH), n_layers=TRAIN_LAYERS),
+              f"not the full-width config cut to {TRAIN_LAYERS} layers: {cfg}")
+        state = make_train_state(s.api, s.opt, torch.Generator(device).manual_seed(0))
+        leaves = flatten(state)
+        nbytes = lambda prefix: sum(t.numel() * t.element_size() for p, t in leaves.items()
+                                    if p.startswith(prefix))
+        params = {p: t for p, t in leaves.items() if p.startswith("params/")}
+        sizes = {"params": sum(t.numel() for t in params.values()),
+                 "params_in_blocks": sum(t.numel() for p, t in params.items()
+                                         if p.startswith("params/blocks/")),
+                 "params_embed_and_head": sum(t.numel() for p, t in params.items()
+                                              if p in ("params/embed/table", "params/lm_head/w")),
+                 "param_bytes": nbytes("params/"),
+                 "moment_bytes": nbytes("opt/m/") + nbytes("opt/v/"),
+                 "state_bytes": nbytes(""), "state_leaves": len(leaves)}
+        check(leaves["opt/m/lm_head/w"].dtype == torch.float32
+              and leaves["params/lm_head/w"].dtype == torch.bfloat16,
+              "want bf16 parameters and fp32 moments")
+        first = next(ShardedTokenDataset(s.data.connector, s.data.base, s.data.cfg).batches())
+        batch = {k: torch.tensor(v, device=device) for k, v in first.items()}
+        numerics = rwkv_numerics(torch, s, state["params"], batch, kernels, ssm_ops, ssm_ref,
+                                 device)
+
+        # the run: RWKV_TRAIN_STEPS steps through run_training, no checkpoint
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        run = run_training(s.api, s.opt, s.loop, s.data, state=state)
+        n_ssm, fa_run, cs_run = ssm_kernel.launches, flash_counts(fa_kernel), cs_kernel.launches
+        check(run.steps_run == RWKV_TRAIN_STEPS, f"rwkv training ran {run.steps_run} steps")
+        check(n_ssm == 2 * cfg.n_layers * run.steps_run,
+              f"{n_ssm} scan launches in {run.steps_run} steps, want 2 x {cfg.n_layers} a step")
+        check(fa_run == (0, 0, 0, 0) and cs_run == 0,
+              f"rwkv training launched flash {fa_run} / checksum {cs_run} times")
+        logged = run.losses + run.grad_norms
+        check(len(run.losses) == RWKV_TRAIN_STEPS and all(math.isfinite(v) for _, v in logged),
+              f"losses and grad norms {logged}")
+        check(abs(run.losses[0][1] - numerics["loss_kernel"]) <= 1e-3 * numerics["loss_kernel"],
+              f"first step's loss {run.losses[0][1]} vs {numerics['loss_kernel']}")
+
+        # the warm rate and one profiled step
+        step_fn = make_train_step(s.api, s.opt)
+        ssm_kernel.launches = 0
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
+        wall = statistics.median(walls)
+        warm_ssm = ssm_kernel.launches
+        check(warm_ssm == 2 * cfg.n_layers * (WARM_STEPS + 1),
+              f"{warm_ssm} scan launches in {WARM_STEPS + 1} steps")
+        ranges = ("train_step/loss_and_grad", "train_step/adamw", "ssm_scan/plain_backward")
+        by_name, n_launches, spans, cpu_side, busy_in = profile_device(
+            torch, lambda: step_fn(state, batch), ranges, complete=lambda counts: sum(
+                c for n, c in counts.items() if "ssm_scan_kernel" in n) == 2 * cfg.n_layers)
+        prof_ssm = ssm_kernel.launches - warm_ssm
+        check(prof_ssm > 0 and prof_ssm % (2 * cfg.n_layers) == 0,
+              f"{prof_ssm} scan launches in the profiled steps")
+        check(all(math.isfinite(t.float().sum().item()) for t in flatten(state).values()),
+              "non-finite training state after the warm steps")
+        peak_mem = torch.cuda.max_memory_allocated(device)
+        busy = sum(by_name.values())
+        scan_ms = sum(ms for n, ms in by_name.items() if "ssm_scan_kernel" in n)
+        bwd_ms, adamw_ms = busy_in["ssm_scan/plain_backward"], busy_in["train_step/adamw"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        row = {"arch": RWKV_ARCH, "reduced": {
+                   "n_layers": [launch_train.get_config(RWKV_ARCH).n_layers, TRAIN_LAYERS],
+                   "why": "as the dense training run: the smoke's time limit"},
+               "d_model": cfg.d_model, "heads": cfg.d_model // cfg.ssm.head_dim,
+               "head_dim": cfg.ssm.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+               **sizes, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+               "run": {"steps_run": run.steps_run, "losses": run.losses,
+                       "grad_norms": run.grad_norms, "scan_launches": n_ssm,
+                       "step_seconds": run.step_seconds},
+               "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+               "profile": {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
+                           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(by_name),
+                           "kernel_launches": n_launches,
+                           "scan_kernel_ms": scan_ms, "plain_scan_backward_ms": bwd_ms,
+                           "adamw_ms": adamw_ms, "rest_ms": busy - scan_ms - bwd_ms - adamw_ms,
+                           "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
+                           "device_busy_ms_in_range": busy_in,
+                           "top_kernels_ms": {n[:80]: ms for n, ms in top}},
+               "max_memory_allocated": peak_mem}
+        emit({"phase": "train_rwkv", **row})
+        return n_ssm, fa_run[2], row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1222,22 +1535,26 @@ def main() -> int:
                                                 ssm_kernel, device)
         rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, (fa_kernel, cs_kernel, ssm_kernel),
                                          ssm_ops, ssm_ref, device)
-        train_fa, train_cs, train_sync = train_full_width(torch, launch_train, fa_kernel,
-                                                          cs_kernel, ssm_kernel, device)
+        train_fa, train_cs, mirror_cs, train_sync = train_full_width(
+            torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device)
+        torch.cuda.empty_cache()
+        rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
+            torch, launch_train, (fa_kernel, cs_kernel, ssm_kernel), ssm_ops, ssm_ref, device)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": sum(r["flash_mma_sync_launches"] for r in serve_rows),
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
-                   **train_sync}
+                   **train_sync, "train_rwkv": rwkv_train_sync}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "kernel": "attn_fwd_bf16_tma (TMA, wgmma)",
         "launches": serve_fa + train_fa,
-        "launches_by_path": {"serve": serve_fa, "serve_rwkv": 0, "train": train_fa},
+        "launches_by_path": {"serve": serve_fa, "serve_rwkv": 0, "train": train_fa,
+                             "train_rwkv": 0},
         # read in each run of each main path, and checked to be 0 there
         "mma_sync_path_launches_by_run": sync_by_run,
         "mma_sync_path_launches": sum(sync_by_run.values()),
@@ -1245,14 +1562,16 @@ def main() -> int:
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
         "replaces": "src/repro/kernels/checksum/kernel.py:32",
-        "launches": train_cs,
-        "launches_by_path": {"serve": 0, "serve_rwkv": 0, "train": train_cs},
+        "launches": train_cs + mirror_cs,
+        "launches_by_path": {"serve": 0, "serve_rwkv": 0, "train": train_cs,
+                             "train_mirror_restore": mirror_cs, "train_rwkv": 0},
         "max_abs_err": cs_worst, **{k: cs_times[0][k] for k in keys}, "shapes": cs_times}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
-        "launches": rwkv_ssm,
-        "launches_by_path": {"serve": 0, "serve_rwkv": rwkv_ssm, "train": 0},
+        "launches": rwkv_ssm + rwkv_train_ssm,
+        "launches_by_path": {"serve": 0, "serve_rwkv": rwkv_ssm, "train": 0,
+                             "train_rwkv": rwkv_train_ssm},
         "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys},
         "device_ms": s_times[0]["device_ms"], "shapes": s_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,6 @@
 """The Connector abstraction (paper §3).
 
-A copy of ``repro/core/connector.py`` (the port imports nothing of
-``repro``), without ``Connector.checksum``: it reads through the
-reference's ``core/integrity.py`` hashers, which no ported path needs.
+A copy of ``repro/core/connector.py``: the port imports nothing of ``repro``.
 
 A Connector gives a managed data-transfer application uniform access to
 one kind of storage system.  The interface reproduces the paper's
@@ -283,6 +281,17 @@ class Connector(ABC):
             fut.result()
 
     # -- optional capabilities -------------------------------------------
+    def checksum(self, session: Session, path: str, algorithm: str) -> str:
+        """Server-side checksum if the storage supports it; default reads
+        through ``send`` (costing a re-read — the integrity-check cost
+        the paper measures in §7)."""
+        from .integrity import hasher  # local import to avoid cycle
+
+        h = hasher(algorithm)
+        sink = _ChecksumChannel(h, self.preferred_blocksize())
+        self.send(session, path, sink)
+        return h.hexdigest()
+
     def preferred_blocksize(self) -> int:
         return 1 << 20
 
@@ -292,6 +301,57 @@ class Connector(ABC):
     # -- identity ----------------------------------------------------------
     def __repr__(self) -> str:  # pragma: no cover
         return f"<Connector {self.name}>"
+
+
+class _ChecksumChannel(AppChannel):
+    """Minimal AppChannel that folds Send output into a hash.
+
+    Ranges are claimed sequentially; writes may still land out of order,
+    so buffer and fold in order.
+    """
+
+    def __init__(self, h, blocksize: int):
+        self._h = h
+        self._bs = blocksize
+        self._next_claim = 0
+        self._fold_at = 0
+        self._pending: dict[int, bytes] = {}
+        self._size: int | None = None
+        self._lock = threading.Lock()
+
+    def set_size(self, size: int) -> None:
+        self._size = size
+
+    def write(self, offset: int, data: bytes) -> None:
+        with self._lock:
+            self._pending[offset] = data
+            while self._fold_at in self._pending:
+                chunk = self._pending.pop(self._fold_at)
+                self._h.update(chunk)
+                self._fold_at += len(chunk)
+
+    def read(self, offset: int, length: int) -> bytes:
+        raise NotImplementedError("checksum channel is read-only")
+
+    def get_concurrency(self) -> int:
+        return 1
+
+    def get_blocksize(self) -> int:
+        return self._bs
+
+    def get_read_range(self) -> ByteRange | None:
+        with self._lock:
+            if self._size is not None and self._next_claim >= self._size:
+                return None
+            length = self._bs
+            if self._size is not None:
+                length = min(length, self._size - self._next_claim)
+            rng = ByteRange(self._next_claim, length)
+            self._next_claim += length
+            return rng
+
+    def bytes_written(self, offset: int, length: int) -> None:
+        pass
 
 
 def iter_files(connector: Connector, session: Session, path: str) -> Iterator[StatInfo]:

@@ -21,6 +21,7 @@ Features needed at 1000-node scale:
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -228,7 +229,7 @@ class ShardedTokenDataset:
             except Exception as e:
                 q.put(e)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="prefetch", daemon=True)
         t.start()
         try:
             while True:
@@ -238,6 +239,9 @@ class ShardedTokenDataset:
                 yield item
         finally:
             stop.set()
+            # free a producer blocked on the full queue, so that it sees stop
+            with contextlib.suppress(queue.Empty):
+                q.get_nowait()
 
     @property
     def hedged_reads(self) -> int:

@@ -19,10 +19,15 @@ rwkv6 layer gives ``ssm_scan_chunked``: q, k and v are rounded to
 ``io_dtype`` before the fp32 math, and ``shard_constrain=True`` raises,
 since the port has no sharding yet (ROADMAP A12).
 
-The op is forward-only on CUDA, as the reference's kernel is: there is no
-backward kernel, so a call that autograd would record through the kernel
-raises (rwkv6 training, ROADMAP A9a).  The CPU path is plain PyTorch and
-differentiable.
+Both run through ``SSMScan``, a ``torch.autograd.Function``.  Its forward
+is the dispatch above.  The reference has no backward kernel: it trains
+through ``jax.grad`` of ``ssm_scan_chunked``.  So the backward here
+recomputes the plain chunked form under autograd from the saved inputs
+and backpropagates through it, on either device; it launches no kernel.
+The broadcast of a (B, T, H, 1) decay and the ``io_dtype`` rounding stay
+outside the Function, so autograd sums the decay's gradient over K and
+passes the rounding's straight through, as ``jax.grad`` of an ``astype``
+does.
 """
 
 from __future__ import annotations
@@ -41,6 +46,47 @@ def _check_chunks(chunk: int, subchunk: int) -> int:
     return sub
 
 
+def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk):
+    """The plain path (the CPU forward; the backward on either device), as
+    the reference's ops: pad T up to a chunk multiple (zero k, v, g are
+    inert), run the chunked form, cut y back to T."""
+    T = q.shape[1]
+    pad = (-T) % chunk
+    if pad:
+        q, k, v, log_decay = (_pad_time(t, pad) for t in (q, k, v, log_decay))
+    y, s_fin = ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
+                                chunk=chunk, subchunk=subchunk)
+    return y[:, :T], s_fin
+
+
+class SSMScan(torch.autograd.Function):
+    """Forward: kernel on CUDA, plain chunked on the CPU.  Backward: the
+    gradient of the plain chunked form (``chunk``, ``subchunk``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, u, initial_state, chunk: int, subchunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_decay, u, initial_state)
+        ctx.chunks = (chunk, subchunk)
+        if q.device.type == "cuda":
+            return kernel.ssm_scan_fwd(q, k, v, log_decay, u, initial_state)
+        return _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.profiler.record_function("ssm_scan/plain_backward"):
+            with torch.enable_grad():
+                outs = _plain(*inputs, *ctx.chunks)
+            # training reads y alone: the final state's gradient is None
+            outs, grads = zip(*((o, d) for o, d in zip(outs, (dy, ds)) if d is not None))
+            got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (*(next(got) if t is not None and t.requires_grad else None
+                  for t in inputs), None, None)
+
+
 def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
              chunk: int = 128, subchunk: int = 16, io_dtype=torch.float32,
              shard_constrain: bool = False):
@@ -53,29 +99,11 @@ def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
         raise NotImplementedError(
             "ssm_scan: shard_constrain needs the port's sharding rules, "
             "ROADMAP A12 (distribution)")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"ssm_scan: no path for device {q.device}")
     log_decay = log_decay.expand(q.shape)
-    dev = q.device
-    if dev.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (q, k, v, log_decay, u, initial_state)):
-            raise NotImplementedError(
-                "ssm_scan: the CUDA kernel has no backward; training through "
-                "the scan on the card is ROADMAP A9a (rwkv6 training)")
-        # the rounding ssm_scan_chunked does to its fp32 copies, in place of them
-        q, k, v = (t.to(io_dtype).to(t.dtype)
-                   if torch.finfo(io_dtype).eps > torch.finfo(t.dtype).eps else t
-                   for t in (q, k, v))
-        return kernel.ssm_scan_fwd(q, k, v, log_decay, u, initial_state)
-    if dev.type == "cpu":
-        # as the reference's ops: pad T up to a chunk multiple (zero k, v, g
-        # are inert), run the chunked form, cut y back to T
-        T = q.shape[1]
-        pad = (-T) % chunk
-        if pad:
-            q, k, v, log_decay = (_pad_time(t, pad) for t in (q, k, v, log_decay))
-        y, s_fin = ssm_scan_chunked(q, k, v, log_decay, u=u,
-                                    initial_state=initial_state,
-                                    chunk=chunk, subchunk=sub, io_dtype=io_dtype)
-        return y[:, :T], s_fin
-    raise ValueError(f"ssm_scan: no path for device {dev}")
+    # the rounding ssm_scan_chunked does to its fp32 copies, in place of them
+    q, k, v = (t.to(io_dtype).to(t.dtype)
+               if torch.finfo(io_dtype).eps > torch.finfo(t.dtype).eps else t
+               for t in (q, k, v))
+    return SSMScan.apply(q, k, v, log_decay, u, initial_state, chunk, sub)

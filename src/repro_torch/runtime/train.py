@@ -1,10 +1,10 @@
 """Fault-tolerant training loop, ported from ``repro/runtime/train.py``.
 
 Wires together the Connector-backed data pipeline, the train step and
-async Connector checkpointing.  Restart is crash-consistent: (model state,
-data-iterator cursor) restore from the latest committed checkpoint.  The
-reference's third-party replication hook comes with the port of
-``TransferService``.
+async Connector checkpointing and third-party checkpoint replication
+(``replicator``, called after a save every ``replicate_every`` steps).
+Restart is crash-consistent: (model state, data-iterator cursor) restore
+from the latest committed checkpoint.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ class TrainLoopConfig:
     total_steps: int = 100
     log_every: int = 10
     ckpt_every: int = 50
+    replicate_every: int = 0      # 0 = off
     seed: int = 0
     fail_at_step: int = -1        # fault injection for tests
 
@@ -57,11 +58,13 @@ class InjectedFailure(RuntimeError):
 def run_training(api: ModelApi, opt_cfg: OptimizerConfig,
                  loop_cfg: TrainLoopConfig, data_iter,
                  ckpt_mgr: CheckpointManager | None = None,
-                 state=None) -> TrainResult:
+                 replicator=None, state=None) -> TrainResult:
     """Trains to ``loop_cfg.total_steps``.  ``state`` is the initial train
     state (default: ``make_train_state`` seeded with ``loop_cfg.seed``); it
     is updated in place, and replaced by the latest checkpoint if
-    ``ckpt_mgr`` has one."""
+    ``ckpt_mgr`` has one.  ``replicator(step)`` runs after a save of a step
+    that ``loop_cfg.replicate_every`` divides, once its ``data_state.json``
+    is written."""
     step_fn = make_train_step(api, opt_cfg)
     if state is None:
         state = make_train_state(
@@ -128,4 +131,7 @@ def run_training(api: ModelApi, opt_cfg: OptimizerConfig,
                           f"{ckpt_mgr.base}/step_{step}/data_state.json",
                           json.dumps(data_iter.state()).encode())
                 ckpt_mgr.connector.destroy(session)
+            if replicator is not None and loop_cfg.replicate_every and \
+                    step % loop_cfg.replicate_every == 0:
+                replicator(step)
     return result(step - start_step)

@@ -1,5 +1,6 @@
 """The port's kernels on the card: the serving paths run the flash kernel
-and the ssm_scan kernel once per layer, the flash kernel's TMA path and its
+and the ssm_scan kernel once per layer, rwkv6 training runs the scan kernel
+twice a layer with the plain scan's gradients, the flash kernel's TMA path and its
 mma.sync path and the ssm_scan kernel agree with their plain versions, and the
 lanesum32 kernel agrees bit for bit with its plain version.
 
@@ -230,12 +231,61 @@ def test_ssm_kernel_head_decay_and_io_dtype(cuda, use_u):
     torch.testing.assert_close(s, want_s, rtol=3e-5, atol=3e-5)
 
 
-def test_ssm_kernel_refuses_autograd(cuda):
-    q, k, v, g, s0, u = _ssm_inputs(SSM_CASES[2], torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="A9a"):
-        ssm_scan(q.requires_grad_(), k, v, g, u, s0)
-    with torch.no_grad():
-        ssm_scan(q, k, v, g, u, s0)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_kernel_grads_match_plain(cuda, dtype):
+    """Training through the kernel: ``ssm_scan`` launches the kernel once
+    for its forward, and its gradients (the plain chunked form's backward
+    from the saved inputs) equal those of the plain chunked form run under
+    autograd on the card, for every input, with and without the final
+    state's gradient."""
+    case = (2, 48, 2, 8, 8, True, 16, 8)
+    for with_state in (False, True):
+        grads = []
+        for fn in (ssm_scan, ssm_scan_chunked):
+            q, k, v, g, s0, u = (t.clone().requires_grad_()
+                                 for t in _ssm_inputs(case, getattr(torch, dtype), cuda))
+            leaves = [q, k, v, g, u, s0]
+            before = ssm_kernel.launches
+            y, s = fn(*leaves, chunk=16, subchunk=8)
+            assert ssm_kernel.launches == before + (fn is ssm_scan)
+            w = torch.linspace(-1, 1, y.numel(), device=cuda).view(y.shape)
+            loss = (y.float() * w).sum() + (s.sum() if with_state else 0)
+            grads.append(torch.autograd.grad(loss, leaves))
+            assert ssm_kernel.launches == before + (fn is ssm_scan)  # the backward is plain
+        for got, want in zip(*grads):
+            assert got.dtype == want.dtype and torch.isfinite(got).all()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_rwkv_loss_and_grad_run_ssm_kernel_twice_per_layer(cuda):
+    """rwkv6 training on the card: one loss and gradient launches the scan
+    kernel twice a layer (the forward, then the block remat's recompute),
+    and its gradients are those of the plain scan's step."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models.convert import flatten
+    from repro_torch.runtime.steps import value_and_grad
+    cfg = get_config("rwkv6-7b").scaled_down()
+    api = build(cfg, cuda)
+    params = api.init(torch.Generator(api.device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    before, fa_before = ssm_kernel.launches, fa_kernel.launches
+    loss, _, grads = value_and_grad(api, params, batch)
+    assert ssm_kernel.launches == before + 2 * cfg.n_layers
+    assert fa_kernel.launches == fa_before
+    kernel_scan = ssm_ops.ssm_scan
+    try:
+        ssm_ops.ssm_scan = lambda q, k, v, g, u=None, initial_state=None, *, chunk, subchunk, \
+            io_dtype, shard_constrain: ssm_scan_chunked(q, k, v, g, u, initial_state, chunk=chunk,
+                                                        subchunk=subchunk, io_dtype=io_dtype)
+        loss_p, _, grads_p = value_and_grad(api, params, batch)
+    finally:
+        ssm_ops.ssm_scan = kernel_scan
+    assert ssm_kernel.launches == before + 2 * cfg.n_layers
+    torch.testing.assert_close(loss, loss_p, rtol=1e-4, atol=1e-4)
+    for path, want in flatten(grads_p).items():
+        torch.testing.assert_close(flatten(grads)[path], want, rtol=1e-3, atol=1e-4,
+                                   msg=lambda m, path=path: f"{path}: {m}")
 
 
 def test_rwkv_prefill_runs_ssm_kernel_per_layer(cuda):

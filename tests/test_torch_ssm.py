@@ -1,8 +1,10 @@
 """The port's gated linear recurrence and rwkv6 layers against the JAX
 reference on the same numpy inputs, in fp32: ``ssm_scan`` (the CPU path)
 against the reference's Pallas kernel in interpret mode and its
-``ssm_scan_ref``; the plain versions and the decode step against theirs; the
-rwkv6 time mix and channel mix against ``repro.models.transformer``."""
+``ssm_scan_ref``; the plain versions and the decode step against theirs; the op's gradients
+(``SSMScan``'s plain backward) against ``jax.grad`` of the reference's
+chunked form and, under strong decay, of its step form; the rwkv6 time mix
+and channel mix against ``repro.models.transformer``."""
 
 import dataclasses
 
@@ -122,6 +124,73 @@ def test_ssm_scan_scalar_decay(use_u):
                                      chunk=16, subchunk=8, scalar_decay=True)
     _close(y2, jy2)
     _close(s2, js2)
+
+
+#: B, T, H, K, V, use_u, chunk, sub, decay: rwkv6's per-key decay, the pad
+#: path (T 40, chunk 16), and mamba's (B, T, H, 1) decay broadcast over K
+GRAD_CASES = [
+    (2, 48, 2, 8, 8, True, 16, 8, "key"),
+    (1, 40, 3, 8, 16, False, 16, 4, "key"),
+    (2, 32, 2, 8, 8, True, 16, 8, "head"),
+]
+
+
+def _grads_vs_jax(jax_fn, q, k, v, g, s0, u, chunk, sub, wy, ws):
+    """Gradients of sum(y wy) (+ sum(s ws) unless ``ws`` is None) through the
+    port's op and through ``jax_fn``, for q, k, v, g, u, s0."""
+    leaves = [t.requires_grad_() for t in _t(q, k, v, g, u, s0)]
+    y, s = ssm_scan(*leaves[:4], u=leaves[4], initial_state=leaves[5],
+                    chunk=chunk, subchunk=sub)
+    loss = (y * torch.from_numpy(wy)).sum()
+    if ws is not None:
+        loss = loss + (s * torch.from_numpy(ws)).sum()
+    got = torch.autograd.grad(loss, leaves)
+
+    def jloss(q, k, v, g, u, s0):
+        y, s = jax_fn(q, k, v, jnp.broadcast_to(g, q.shape), u=u, initial_state=s0)
+        return (y * wy).sum() + (0.0 if ws is None else (s * ws).sum())
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*_j(q, k, v, g, u, s0))
+    return got, want
+
+
+@pytest.mark.parametrize("outputs", ["y", "y_and_state"])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[f"g{i}" for i in range(len(GRAD_CASES))])
+def test_ssm_scan_grads_match_jax(case, outputs):
+    """``SSMScan``'s backward against ``jax.grad`` of the reference's
+    ``ssm_scan_chunked`` (what its rwkv6 layer trains through), at 1e-4;
+    with y alone the final state's gradient never reaches the backward, as
+    in training."""
+    B, T, H, K, V, use_u, chunk, sub, decay = case
+    q, k, v, g, s0, u = _inputs(B, T, H, K, V, seed=T + 7, scalar=decay == "head")
+    if decay == "head":
+        g = np.ascontiguousarray(g[..., :1])
+    if not use_u:
+        u = np.zeros_like(u)  # inert; its gradient is still compared
+    rng = np.random.default_rng(T)
+    wy = rng.standard_normal((B, T, H, V)).astype(np.float32)
+    ws = rng.standard_normal((B, H, K, V)).astype(np.float32) if outputs != "y" else None
+    got, want = _grads_vs_jax(
+        lambda *a, **kw: jssm.ssm_scan_chunked(*a, **kw, chunk=chunk, subchunk=sub),
+        q, k, v, g, s0, u, chunk, sub, wy, ws)
+    for name, a, b in zip(("q", "k", "v", "log_decay", "u", "initial_state"), got, want):
+        assert a.shape == b.shape, name
+        _close(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_ssm_scan_grads_strong_decay():
+    """Under strong decay (log decay about -4.5 a step) the gradient stays
+    finite and matches ``jax.grad`` of the step form ``ssm_scan_ref``.  The
+    reference's chunked form gives nan there (ROADMAP C5), so it cannot be
+    the oracle."""
+    q, k, v, g, s0, u = _inputs(1, 64, 2, 8, 8, seed=0, decay_scale=-1.5)
+    rng = np.random.default_rng(1)
+    wy = rng.standard_normal((1, 64, 2, 8)).astype(np.float32)
+    ws = rng.standard_normal((1, 2, 8, 8)).astype(np.float32)
+    got, want = _grads_vs_jax(jssm.ssm_scan_ref, q, k, v, g, s0, u, 32, 8, wy, ws)
+    for name, a, b in zip(("q", "k", "v", "log_decay", "u", "initial_state"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("use_u", [False, True], ids=["inclusive", "bonus"])

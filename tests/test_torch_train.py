@@ -1,6 +1,7 @@
 """Whole-model training parity: the port's loss, gradients and train step
 against ``repro`` on the reference's own parameters, for three dense
-scaled-down configs in fp32; then the port's ports of the runtime tests
+scaled-down configs and rwkv6 (its scan through ``SSMScan``'s plain
+backward) in fp32; then the port's ports of the runtime tests
 (tests/test_runtime.py): AdamW on a quadratic, the loss going down and a
 restart after preemption."""
 
@@ -29,7 +30,7 @@ from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
 from repro_torch.runtime.steps import make_train_state, make_train_step, value_and_grad
 from repro_torch.runtime.train import TrainLoopConfig, run_training
 
-ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b"]
+ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 S = 128  # two logit chunks and two attention chunks of the scaled-down configs
 #: eps sits well above the fp32 noise of vanishing gradient entries: at step 1

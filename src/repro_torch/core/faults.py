@@ -172,7 +172,7 @@ class StreamFaults:
 
 
 class FaultSchedule:
-    """A composable plan of failures.  Builder methods append rules and
+    """A composable plan of failures.  Its rule methods append rules and
     return ``self``::
 
         sched = (FaultSchedule(seed=7)
@@ -194,7 +194,7 @@ class FaultSchedule:
         self._counts: dict[tuple, int] = {}
         self._lock = threading.Lock()
 
-    # -- builder ---------------------------------------------------------
+    # -- rules -----------------------------------------------------------
     def add(self, rule: FaultRule) -> "FaultSchedule":
         self.rules.append(rule)
         return self

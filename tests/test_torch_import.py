@@ -122,3 +122,16 @@ def test_plane_module_imports_alone_without_reference(module):
                       " or m.startswith(('jax.', 'jaxlib.', 'repro.'))))"])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """Every import in chip_smoke.py, those inside its functions included,
+    names neither ``jax`` nor the reference package."""
+    import ast
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "repro_torch.launch" in names  # the walk sees the function-local imports
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
+    assert bad == []

@@ -38,7 +38,33 @@
    land beyond it); bf16 logits as close to an fp32 prefill as the plain
    bf16 prefill's; tokens/s, peak memory, and the device busy time and
    idle share of a profiled prefill and decode step;
-7. trains full-width h2o-danube-3-4b cut to 2 layers through
+7. serves full-width, full-depth granite-moe-1b-a400m (24 MoE layers of 32
+   experts, top 8, bf16) the same two ways (``serve_moe``): 24 flash
+   launches per prefill, all on the TMA path, finite logits; in fp32
+   compute the kernel path's greedy first tokens equal to the plain
+   attention's and its logits within MOE_FP32_LOGIT_LIMIT of them (the
+   kernel fed bf16-rounded q, k, v must land beyond it); in bf16 the logit
+   error against fp32 and the routing decisions that differ from the plain
+   run are printed, not gated (top-k routing turns bf16 noise into other
+   experts); tokens/s and a profiled prefill;
+8. runs one jamba mamba mixer at full width (``mamba_layer``: d_model
+   8192, 256 heads of 64, d_state 64) at B4 x T512 and B1 x T5120, then 8
+   decode steps: one scan launch per prefill and none per decode step;
+   the scan's q and k are C_t and B_t expanded over the heads and g one
+   value per (b, t, h), read in place: the kernel's y and state against
+   the plain scalar-decay chunked form (fp32 and bf16), bit for bit what
+   it gives on contiguous copies, and device memory growing by no more
+   than y and the state during the call; its device time and bound at both
+   shapes, its share of the layer's prefill, and the memory and time the
+   copying call would add;
+9. serves jamba scaled down (2 blocks of 7 mamba + 1 attention layer, MoE
+   every second layer, fp32) through ``repro_torch.launch.serve``
+   (``serve_hybrid``): the scan once per mamba layer and flash once per
+   attention layer in a prefill, neither in decode; prefill and decode
+   logits against the same model through plain attention and the plain
+   scan, within HYBRID_FP32_LOGIT_LIMIT (a scan fed bf16 inputs must land
+   beyond it), and the same greedy first tokens;
+10. trains full-width h2o-danube-3-4b cut to 2 layers through
    ``repro_torch.launch.train`` (batch 2 x 2048 tokens, bf16 parameters,
    fp32 AdamW moments, a corpus and checkpoints on the POSIX Connector in
    a temporary directory): a run stopped by an injected failure at step 5,
@@ -52,14 +78,14 @@
    destination must equal the digest the card took at save time, the
    mirror must restore onto the card byte for byte, and a byte flipped in
    the mirror must fail its restore (``replication`` in ``train``);
-8. trains full-width rwkv6-7b cut to 2 layers the same way, without
+11. trains full-width rwkv6-7b cut to 2 layers the same way, without
    checkpoints (``train_rwkv``): 2 scan launches per layer and step (the
    forward, then the block remat's recompute; the backward is the plain
    chunked form's), no flash or checksum launch, one step's per-token
    losses and gradients through the kernel in bf16 and fp32 against the
    plain scan's, the warm training rate and a profiled step's device time
    split into the scan kernel, the plain scan backward, AdamW and the rest;
-9. prints one JSON line of per-kernel launches (by path), times and
+12. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -108,7 +134,8 @@ SYNC_CASES = [((2, 200, 200, 4, 2, 20, True, None), 0),
               ((1, 300, 300, 32, 8, 120, True, 128), 1)]
 MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
               (1, 5120, 5120, 32, 8, 120, True, 4096),
-              (2, 2048, 2048, 32, 8, 120, True, 4096)]  # the training step's
+              (2, 2048, 2048, 32, 8, 120, True, 4096),  # the training step's
+              (4, 512, 512, 16, 8, 64, True, None)]  # granite-moe's 4 x 512 prefill
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.py
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
@@ -180,6 +207,35 @@ SSM_TOL = {"random": 3e-5, "scalar": 3e-5, "strong": 1e-4, "harsh": 3e-5}
 SSM_BF16_RTOL = 2.0 ** -6
 #: H100 SXM data sheet: fp32 FLOP/s on the CUDA cores (no tensor cores)
 PEAK_FP32_FLOPS = 67e12
+
+MOE_ARCH = "granite-moe-1b-a400m"
+#: (requests, prompt tokens, generated tokens) served at full width and depth
+MOE_WORKLOADS = [(4, 512, 32), (1, 5120, 8)]
+#: granite-moe fp32 prefill, flash kernel against plain attention: largest
+#: logit difference allowed.  A sound kernel read 4.2e-6 / 7.6e-6 at 4 x 512
+#: / 1 x 5120 (no routing decision differed); the kernel fed bf16-rounded
+#: q, k, v read 0.109 / 0.036 and must stay above it.
+MOE_FP32_LOGIT_LIMIT = 1e-3
+
+#: jamba: one mamba mixer at full width, (batch, tokens) of its prefills,
+#: then this many one-token decode steps
+HYBRID_ARCH = "jamba-1.5-large-398b"
+MAMBA_SHAPES = [(4, 512), (1, 5120)]
+MAMBA_DECODE_STEPS = 8
+#: B, T, H, K, V, use_u, chunk, subchunk, kind: the mamba layer's scan at
+#: full width (256 heads, K = V = 64, one decay per head), both shapes
+MAMBA_MAIN_CASES = [(4, 512, 256, 64, 64, False, 512, 128, "mamba"),
+                    (1, 5120, 256, 64, 64, False, 512, 128, "mamba")]
+#: allocator slack per tensor in the copy-free check: a block may hold up to
+#: 1 MiB past its 512-byte rounded request (CUDA caching allocator)
+ALLOC_SLACK = 2 << 20
+#: the scaled-down hybrid stack served in fp32 (requests, prompt, generated)
+HYBRID_WORKLOADS = [(2, 256, 8)]
+#: its logits, flash and scan kernels against plain attention and the plain
+#: scan: largest difference allowed.  A sound pair of kernels read at most
+#: 1.02e-5 over the prefill and 7 decode steps; the scan fed bf16 q, k, v
+#: (ssm_bf16_io) read 0.048 and must stay above it.
+HYBRID_FP32_LOGIT_LIMIT = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -568,6 +624,31 @@ def ssm_inputs(case, dtype, seed, device, torch):
     return q.to(dtype), k.to(dtype), v.to(dtype), g, s0, (u if use_u else None)
 
 
+def scan_errors(torch, y, s_fin, want_y, want_s, dt, tol, name, row, held=True, what=""):
+    """The scan's y and final state against ``want``: the largest absolute
+    error and share of the limit ``atol + rtol * |want|`` of each go into
+    ``row``; with ``held``, a share above 1 fails.  fp32 and the state:
+    rtol = atol = ``tol``; bf16 y: rtol SSM_BF16_RTOL and an atol of 3e-5
+    times the mean |want| of each (b, t, h) row.  Returns the largest
+    absolute error held (0 when not held)."""
+    worst = 0.0
+    for out, got, want in (("y", y.float(), want_y.float()), ("s_fin", s_fin, want_s)):
+        err = (got - want).abs()
+        if out == "y" and dt == "bfloat16":
+            rtol, atol = SSM_BF16_RTOL, 3e-5 * want.abs().mean(dim=-1, keepdim=True)
+        else:
+            rtol, atol = tol, torch.full_like(want[..., :1], tol)
+        share = err / (atol + rtol * want.abs())
+        key = f"{out}_{name}"
+        row.update({f"max_abs_err_{key}": err.max().item(),
+                    f"max_err_share_of_limit_{key}": share.max().item()})
+        if held:
+            check(row[f"max_err_share_of_limit_{key}"] <= 1.0,
+                  f"ssm kernel vs {name}, {out}: {what}: {row}")
+            worst = max(worst, row[f"max_abs_err_{key}"])
+    return worst
+
+
 def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
     """The scan kernel (through ``ops.ssm_scan``) against the plain chunked
     version, the step recurrence ``ssm_scan_ref`` and ``ssm_scan_blocked``
@@ -603,75 +684,90 @@ def ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device):
         torch.cuda.synchronize()
         check(ssm_kernel.launches == before + 1, f"ssm case {case}: the kernel did not launch")
         check(y.dtype == q.dtype and s_fin.dtype == torch.float32, f"ssm case {case}: dtypes")
-        tol = SSM_TOL[kind]
         row = {"case": list(case), "dtype": dt}
         for name, (want_y, want_s) in (
                 ("plain", ssm_ref.ssm_scan_chunked(q, k, v, g, u, s0, chunk=chunk,
                                                     subchunk=sub)),
                 ("ssm_scan_ref", ssm_ref.ssm_scan_ref(q, k, v, g, u, s0)),
                 ("blocked", ssm_ref.ssm_scan_blocked(q, k, v, g, u, s0))):
-            for out, got, want in (("y", y.float(), want_y.float()), ("s_fin", s_fin, want_s)):
-                err = (got - want).abs()
-                if out == "y" and dt == "bfloat16":
-                    rtol = SSM_BF16_RTOL
-                    atol = 3e-5 * want.abs().mean(dim=-1, keepdim=True)
-                else:
-                    rtol, atol = tol, torch.full_like(want[..., :1], tol)
-                share = err / (atol + rtol * want.abs())
-                key = f"{out}_{name}"
-                row.update({f"max_abs_err_{key}": err.max().item(),
-                            f"max_err_share_of_limit_{key}": share.max().item()})
-                if kind == "harsh" and name == "plain":
-                    continue  # recorded, not held: the plain form is off there itself
-                check(row[f"max_err_share_of_limit_{key}"] <= 1.0,
-                      f"ssm kernel vs {name}, {out}: case {case} {dt}: {row}")
-            if not (kind == "harsh" and name == "plain"):
-                worst = max(worst, row[f"max_abs_err_y_{name}"],
-                            row[f"max_abs_err_s_fin_{name}"])
+            # under the harsh decay the plain form is off itself: recorded, not held
+            err = scan_errors(torch, y, s_fin, want_y, want_s, dt, SSM_TOL[kind], name, row,
+                              held=not (kind == "harsh" and name == "plain"),
+                              what=f"case {case} {dt}")
+            worst = max(worst, err)
         rows.append(row)
         del q, k, v, g, s0, u, y, s_fin
     emit({"phase": "ssm_check", "ok": True, "cases": rows})
     return worst
 
 
-def ssm_work(B, T, H, K, V, elem_bytes):
+def ssm_work(B, T, H, K, V, elem_bytes, layout="rwkv"):
     """(bytes, flops) the scan must move and do at prefill: q, k, v read and y
     written in ``elem_bytes``, g read in fp32, u read, the final state written
     in fp32; the step form's two multiply-adds per (t, k, v), 4 K V
-    operations per (token, head)."""
-    nbytes = (elem_bytes * B * T * H * (2 * K + 2 * V) + 4 * B * T * H * K
-              + 4 * H * K + 4 * B * H * K * V)
+    operations per (token, head).  ``layout="mamba"``: q and k are one row
+    per (b, t) for every head, g one value per (b, t, h), and no u."""
+    if layout == "mamba":
+        nbytes = (elem_bytes * B * T * (2 * K + 2 * H * V) + 4 * B * T * H
+                  + 4 * B * H * K * V)
+    else:
+        nbytes = (elem_bytes * B * T * H * (2 * K + 2 * V) + 4 * B * T * H * K
+                  + 4 * H * K + 4 * B * H * K * V)
     return nbytes, 4 * K * V * B * T * H
 
 
-def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True):
+def mamba_scan_inputs(torch, B, T, H, K, V, dtype, seed, device):
+    """mamba's scan operands: q and k, (B, T, K) rows expanded over the
+    heads (views), v, and g of one log decay per (b, t, h), (B, T, H, 1),
+    drawn as the layer's are about: dt about 0.01, A from 1 to 16."""
+    gen = torch.Generator(device).manual_seed(seed)
+    c, b = (torch.randn((B, T, K), generator=gen, device=device).to(dtype) for _ in range(2))
+    v = (torch.randn((B, T, H, V), generator=gen, device=device) * 0.01).to(dtype)
+    a = torch.linspace(1.0, 16.0, H, device=device)
+    g = (-a * 0.01 * torch.exp(torch.randn((B, T, H), generator=gen, device=device) * 0.5))
+    return (c[:, :, None].expand(B, T, H, K), b[:, :, None].expand(B, T, H, K), v,
+            g[..., None])
+
+
+def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True, cases=SSM_MAIN_CASES):
     """Kernel / plain times and the bound at the served shapes, in bf16 as
     served: CUDA-event time over a loop of calls (``ms``) and the device
     time per launch of the kernel's records under torch.profiler over
     PROFILED_CALLS calls (``device_ms``), which a loop of events bound by
-    the enqueue would not show.  The bound is the larger of the bytes' and
+    the enqueue would not show (the mean over the records it keeps, at least
+    half of them).  The bound is the larger of the bytes' and
     the step form's operations' times, both reported.  No single PyTorch
     call computes this recurrence, so there is no library time.  Without
-    ``plain`` the plain version is not timed."""
+    ``plain`` the plain version is not timed.  ``cases`` of kind "mamba"
+    take mamba's layout (``mamba_scan_inputs``), in place, and the plain
+    form's scalar-decay path."""
     out = []
-    for i, case in enumerate(SSM_MAIN_CASES):
-        B, T, H, K, V, _, chunk, sub, _ = case
-        q, k, v, g, _, u = ssm_inputs(case, torch.bfloat16, 300 + i, device, torch)
-        nbytes, flops = ssm_work(B, T, H, K, V, elem_bytes=2)
+    for i, case in enumerate(cases):
+        B, T, H, K, V, _, chunk, sub, kind = case
+        layout = "mamba" if kind == "mamba" else "rwkv"
+        if layout == "mamba":
+            q, k, v, g = mamba_scan_inputs(torch, B, T, H, K, V, torch.bfloat16, 310 + i, device)
+            u = None
+        else:
+            q, k, v, g, _, u = ssm_inputs(case, torch.bfloat16, 300 + i, device, torch)
+        nbytes, flops = ssm_work(B, T, H, K, V, elem_bytes=2, layout=layout)
         t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
         call = lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g, u, None)
         ms = time_ms(call, torch)
-        kernels, _, _, _, _ = profile_device(
+        # the mean over the launches the profiler recorded: at mamba's shapes it
+        # kept 18 of 20 records in five runs of one call (H100, torch 2.11)
+        kernels, records, _, _, _ = profile_device(
             torch, lambda: [call() for _ in range(PROFILED_CALLS)],
-            complete=lambda counts: sum(c for n, c in counts.items()
-                                        if "ssm_scan_kernel" in n) == PROFILED_CALLS)
-        device_ms = sum(t for n, t in kernels.items() if "ssm_scan_kernel" in n) / PROFILED_CALLS
+            complete=lambda counts: bool(counts) and all("ssm_scan_kernel" in n for n in counts)
+            and sum(counts.values()) >= PROFILED_CALLS // 2)
+        device_ms = sum(kernels.values()) / records
         bound = max(t_mem, t_ops)
         out.append({"B": B, "T": T, "H": H, "K": K, "V": V, "dtype": "bfloat16",
-                    "bytes": nbytes, "flops": flops, "ms": ms, "kernel_ms": ms,
-                    "device_ms": device_ms,
+                    "layout": layout, "bytes": nbytes, "flops": flops, "ms": ms,
+                    "kernel_ms": ms, "device_ms": device_ms, "profiled_records": records,
                     "plain_ms": time_ms(lambda: ssm_ref.ssm_scan_chunked(
-                        q, k, v, g, u, None, chunk=chunk, subchunk=sub), torch, min_s=0.5)
+                        q, k, v, g, u, None, chunk=chunk, subchunk=sub,
+                        scalar_decay=layout == "mamba"), torch, min_s=0.5)
                     if plain else None,
                     "bound_ms": bound, "bound_by": "bytes" if t_mem >= t_ops else "operations",
                     "bytes_ms": t_mem, "operations_ms": t_ops, "library_ms": None,
@@ -738,10 +834,11 @@ def plain_scan(ssm_ops, ssm_ref):
     """The plain chunked scan in place of ``ops.ssm_scan`` for the block, as
     a test's monkeypatch would swap it in."""
     def scan(q, k, v, log_decay, u=None, initial_state=None, *, chunk, subchunk, io_dtype,
-             shard_constrain):
+             shard_constrain, scalar_decay=False):
         return ssm_ref.ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
                                         chunk=chunk, subchunk=min(subchunk, chunk),
-                                        io_dtype=io_dtype, shard_constrain=shard_constrain)
+                                        scalar_decay=scalar_decay, io_dtype=io_dtype,
+                                        shard_constrain=shard_constrain)
 
     kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, scan
     try:
@@ -901,6 +998,448 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
     return results, launches
 
 
+@contextlib.contextmanager
+def routing_recorder(tf, moe):
+    """Records, in call order, the experts each MoE layer of the block routes
+    each token to (the sorted top-k indices of the router's fp32 softmax),
+    by wrapping the model's ``moe_apply``."""
+    calls = []
+
+    def apply(p, x, cfg):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"]["w"].float()
+        calls.append(logits.softmax(-1).topk(cfg.moe.top_k, dim=-1).indices.sort(-1).values)
+        return moe.moe_apply(p, x, cfg)
+
+    kernel_apply, tf.moe_apply = tf.moe_apply, apply
+    try:
+        yield calls
+    finally:
+        tf.moe_apply = kernel_apply
+
+
+def routing_diff(a, b):
+    """(token-layer routing decisions whose expert sets differ, decisions)."""
+    return (sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)),
+            sum(x.shape[0] for x in a))
+
+
+@contextlib.contextmanager
+def bf16_attention_inputs(layers):
+    """The attention kernel fed q, k, v rounded to bf16, for the block: what
+    an attention kernel that loses fp32 precision on its inputs gives."""
+    kernel_attention = layers.flash_attention_auto
+    layers.flash_attention_auto = lambda q, k, v, **kw: kernel_attention(
+        *(t.bfloat16().to(t.dtype) for t in (q, k, v)), **kw)
+    try:
+        yield
+    finally:
+        layers.flash_attention_auto = kernel_attention
+
+
+def serve_moe(torch, serve, build, kernels, device):
+    """The MoE serving path: full-width, full-depth granite-moe-1b-a400m
+    through repro_torch.launch.serve, attention on the flash kernel (TMA
+    path), the experts as batched products; one profiled prefill.  Then the
+    same prefill in fp32 compute (the same bf16 weights) through the kernel
+    (flash's fp32 path), through plain attention, and through the kernel
+    fed bf16-rounded q, k, v; and the bf16 prefill through plain attention.
+
+    In fp32 the kernel path must give the plain path's greedy first token on
+    every request and logits within MOE_FP32_LOGIT_LIMIT of it, and the
+    bf16-input kernel must land beyond that limit.  In bf16 nothing is held
+    to the plain path: top-k routing turns bf16 noise into other experts, so
+    the largest logit error against fp32 and the count of routing decisions
+    that differ from the plain run are printed."""
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.convert import flatten
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    results, launches, sync = [], 0, 0
+    for B, S, gen_len in MOE_WORKLOADS:
+        args = serve.parse_args(["--arch", MOE_ARCH, "--no-scaled-down", "--requests", str(B),
+                                 "--prompt-len", str(S), "--gen-len", str(gen_len),
+                                 "--device", str(device), "--seed", "0"])
+        api, params, tokens = serve.setup(args)
+        cfg = api.cfg
+        check(cfg == serve.get_config(MOE_ARCH), f"not the full-width config: {cfg}")
+        leaves = flatten(params).values()
+        n_params = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        res = serve.serve(api, params, tokens, gen_len)
+        n, n_tma, n_sync, n_f32 = flash_counts(fa_kernel)
+        launches, sync = launches + n, sync + n_sync
+        check(n == cfg.n_layers, f"{n} flash launches in one prefill, want {cfg.n_layers}")
+        check(n_tma == n, f"MoE serving took the mma.sync path {n_sync} / the fp32 path "
+                          f"{n_f32} times")
+        check(cs_kernel.launches == 0 and ssm_kernel.launches == 0,
+              f"MoE serving launched checksum {cs_kernel.launches} / scan "
+              f"{ssm_kernel.launches} times")
+        logits, toks = res["logits"], res["tokens"]
+        check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size, f"generated tokens {tuple(toks.shape)}")
+        peak_mem = torch.cuda.max_memory_allocated(device)
+
+        def prefill():
+            return api.prefill(params, {"tokens": tokens})
+
+        with torch.inference_mode():
+            reset_flash_counts(fa_kernel)
+            pre_wall = statistics.median(wall_ms(torch, prefill, 3))
+            pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
+            by_name, pre_n, _, _, _ = profile_device(
+                torch, prefill, complete=lambda counts: sum(
+                    c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
+        check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
+              f"3 prefills: {pre_all} launches, {pre_tma} TMA and {pre_sync} mma.sync")
+        sync += pre_sync
+        pre_busy = sum(by_name.values())
+        pre_fa = sum(ms for name, ms in by_name.items() if "attn_fwd_bf16_tma" in name)
+        check(pre_fa > 0, "the profiled prefill shows no attn_fwd_bf16_tma kernel")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+        plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
+        exact = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+        exact_plain = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"),
+                            device)
+        before = flash_counts(fa_kernel)
+        batch = {"tokens": tokens}
+        with torch.inference_mode():
+            with routing_recorder(tf, moe) as r_k:
+                lg_k, _, _ = api.prefill(params, batch)
+            with routing_recorder(tf, moe) as r_p:
+                lg_p, _, _ = plain.prefill(params, batch)
+            with routing_recorder(tf, moe) as r32_k:
+                lg32_k, _, _ = exact.prefill(params, batch)
+            with routing_recorder(tf, moe) as r32_p:
+                lg32_p, _, _ = exact_plain.prefill(params, batch)
+            with bf16_attention_inputs(layers):
+                lg32_bf16_in, _, _ = exact.prefill(params, batch)
+        took = tuple(a - b for a, b in zip(flash_counts(fa_kernel), before))
+        check(took == (3 * cfg.n_layers, cfg.n_layers, 0, 2 * cfg.n_layers),
+              f"flash launches (all, TMA, mma.sync, fp32) {took} in a bf16 and two fp32 kernel "
+              "prefills and two plain ones")
+        diff32 = (lg32_k - lg32_p).abs().max().item()
+        diff_bf16_in = (lg32_bf16_in - lg32_p).abs().max().item()
+        err = (lg_k - lg32_p).abs().max().item()
+        err_plain = (lg_p - lg32_p).abs().max().item()
+        first32, first32_plain = lg32_k[:, -1].argmax(-1), lg32_p[:, -1].argmax(-1)
+        top2_32 = lg32_p[:, -1].topk(2, dim=-1).values
+        flips, decisions = routing_diff(r_k, r_p)
+        flips32, _ = routing_diff(r32_k, r32_p)
+        row = {"arch": MOE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+               "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, "d_ff": cfg.d_ff,
+               "vocab": cfg.vocab_size, "params": n_params, "param_bytes": n_bytes,
+               "requests": B, "prompt_len": S, "gen_len": gen_len,
+               "kernel_launches": n, "flash_mma_sync_launches": n_sync + pre_sync,
+               "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
+               "max_memory_allocated": peak_mem,
+               "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
+                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   "flash_kernel_ms": pre_fa,
+                                   "flash_kernel_share_of_busy": pre_fa / pre_busy,
+                                   "flash_tma_launches": pre_tma // 3,
+                                   "top_kernels_ms": {k[:80]: v for k, v in top}},
+               "fp32_max_abs_logit_diff_kernel_vs_plain": diff32,
+               "fp32_logit_limit": MOE_FP32_LOGIT_LIMIT,
+               "fp32_share_of_limit": diff32 / MOE_FP32_LOGIT_LIMIT,
+               "fp32_bf16_inputs_max_abs_logit_diff_vs_plain": diff_bf16_in,
+               "fp32_first_tokens": first32.tolist(),
+               "fp32_first_tokens_plain": first32_plain.tolist(),
+               "fp32_top2_margin_plain": (top2_32[:, 0] - top2_32[:, 1]).tolist(),
+               "fp32_routing_decisions_differing": flips32,
+               "routing_decisions": decisions,
+               "bf16_routing_decisions_differing": flips,
+               "max_abs_logit_err_vs_fp32": err,
+               "plain_max_abs_logit_err_vs_fp32": err_plain,
+               "bf16_first_tokens": lg_k[:, -1].argmax(-1).tolist(),
+               "bf16_first_tokens_plain": lg_p[:, -1].argmax(-1).tolist(),
+               "sample_tokens": toks[0, :8].tolist()}
+        emit({"phase": "serve_moe", **row})
+        check(bool(torch.isfinite(lg32_k).all()), "non-finite fp32 logits")
+        check(bool((first32 == first32_plain).all()),
+              f"fp32 greedy first tokens {first32.tolist()}, plain {first32_plain.tolist()}")
+        check(diff32 <= MOE_FP32_LOGIT_LIMIT,
+              f"fp32 logits {diff32} from plain attention's, limit {MOE_FP32_LOGIT_LIMIT}")
+        check(diff_bf16_in > MOE_FP32_LOGIT_LIMIT,
+              f"the bf16-input kernel's fp32 logits are {diff_bf16_in} from plain attention's, "
+              f"within the limit {MOE_FP32_LOGIT_LIMIT}: the limit tells nothing apart")
+        results.append(row)
+        del api, params, tokens, res, logits, plain, exact, exact_plain, lg_k, lg_p, lg32_k
+        del lg32_p, lg32_bf16_in, r_k, r_p, r32_k, r32_p
+        torch.cuda.empty_cache()
+    return results, launches, sync
+
+
+@contextlib.contextmanager
+def capture_scan(ssm_ops):
+    """Records (args, kwargs, result) of every ``ops.ssm_scan`` call in the
+    block; the calls still run the op."""
+    calls = []
+
+    def scan(*args, **kw):
+        out = kernel_scan(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, scan
+    try:
+        yield calls
+    finally:
+        ssm_ops.ssm_scan = kernel_scan
+
+
+def growth_bytes(torch, device, fn):
+    """(peak device bytes allocated during ``fn()`` above what was allocated
+    before it, fn's result)."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) - base, out
+
+
+def mamba_scan_errors(torch, ssm_ref, q, k, v, g, y, s_fin, dt, chunks, row, what):
+    """The mamba layer's scan (y, s_fin from the kernel) against the step
+    recurrence and the plain scalar-decay chunked form at chunk 128 /
+    subchunk 16, both held at the SSM_TOL (fp32) / SSM_BF16_RTOL (bf16)
+    limits; and against the plain form at the layer's own chunks (512 /
+    128), recorded, not held: there the cumulative log decay of a chunk
+    reaches about -80, and the plain form's fp32 differences of it leave
+    that form itself further from the step recurrence than the kernel is
+    (against it alone the kernel's bf16 y exceeded the limit at B1 T5120
+    on an H100, share 1.19, where it read 0.50 against the other two)."""
+    worst, tag = 0.0, "" if dt == "bfloat16" else "_fp32"
+    for name, held, fn in (
+            ("ssm_scan_ref", True, lambda: ssm_ref.ssm_scan_ref(q, k, v, g.expand(q.shape))),
+            ("plain", True, lambda: ssm_ref.ssm_scan_chunked(
+                q, k, v, g, chunk=128, subchunk=16, scalar_decay=True)),
+            ("plain_layer_chunks", False, lambda: ssm_ref.ssm_scan_chunked(q, k, v, g, **chunks))):
+        want_y, want_s = fn()
+        worst = max(worst, scan_errors(torch, y, s_fin, want_y, want_s, dt, SSM_TOL["random"],
+                                       name + tag, row, held=held, what=f"{what} {dt}"))
+        del want_y, want_s
+    return worst
+
+
+def mamba_layer(torch, kernels, ssm_ops, ssm_ref, device):
+    """One jamba mamba mixer at full width (random bf16 weights from a seed)
+    at each of MAMBA_SHAPES: a prefill through ``mamba_apply`` (one scan
+    launch), then MAMBA_DECODE_STEPS steps through ``mamba_decode`` (none).
+    Its scan, as the layer called it, is held to the step recurrence and
+    the plain scalar-decay chunked form on the same operands
+    (``mamba_scan_errors``): bf16 as the layer runs, and fp32 (the same
+    layer on an fp32 input) at SSM_TOL; bit for bit to the kernel
+    on contiguous copies of q, k and the expanded g; and the op's call may
+    grow device memory by y and the state only (ALLOC_SLACK each).  One
+    decode step after the fp32 prefill must give the last position of an
+    fp32 prefill one token longer.  A profiled prefill gives the scan's
+    share of the layer's device time; the copying call's extra memory and
+    time are printed, not claimed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.convert import flatten
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    cfg = get_config(HYBRID_ARCH)
+    d_inner, H = tf._mamba_dims(cfg)
+    K, V = cfg.ssm.d_state, cfg.ssm.head_dim
+    gen = torch.Generator(device).manual_seed(0)
+    p = tf.mamba_init(gen, cfg, torch.bfloat16)
+    leaves = flatten(p).values()
+    head = {"arch": HYBRID_ARCH, "d_model": cfg.d_model, "d_inner": d_inner, "heads": H,
+            "d_state": K, "head_dim": V, "d_conv": cfg.ssm.d_conv, "chunk": cfg.ssm.chunk,
+            "subchunk": cfg.ssm.subchunk, "params": sum(t.numel() for t in leaves),
+            "param_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+    rows, launches, worst = [], 0, 0.0
+    for B, T in MAMBA_SHAPES:
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device=device).bfloat16()
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        with torch.inference_mode(), capture_scan(ssm_ops) as calls:
+            out, state = tf.mamba_apply(p, x, cfg)
+            torch.cuda.synchronize()
+            n_pre = ssm_kernel.launches
+            for _ in range(MAMBA_DECODE_STEPS):
+                xt = torch.randn((B, 1, cfg.d_model), generator=gen, device=device).bfloat16()
+                o, state = tf.mamba_decode(p, xt, cfg, state)
+            torch.cuda.synchronize()
+        n_dec = ssm_kernel.launches - n_pre
+        launches += ssm_kernel.launches
+        check(n_pre == 1 and n_dec == 0 and len(calls) == 1,
+              f"scan launches: {n_pre} in a prefill, {n_dec} in {MAMBA_DECODE_STEPS} decode steps")
+        check(flash_counts(fa_kernel) == (0, 0, 0, 0) and cs_kernel.launches == 0,
+              "the mamba layer launched flash or checksum")
+        check(bool(torch.isfinite(out).all() and torch.isfinite(o).all()
+                   and torch.isfinite(state[0]).all()), "non-finite mamba layer outputs")
+        (q, k, v, g), kw, (y, s_fin) = calls[0][0][:4], calls[0][1], calls[0][2]
+        check(q.stride(2) == 0 and k.stride(2) == 0 and tuple(g.shape) == (B, T, H, 1)
+              and kw["scalar_decay"], f"the scan's operands: q {q.stride()}, k {k.stride()}, "
+                                      f"g {tuple(g.shape)}, {kw}")
+        row = {**head, "B": B, "T": T, "scan_launches_per_prefill": n_pre,
+               "scan_launches_per_decode_step": n_dec / MAMBA_DECODE_STEPS}
+        chunks = dict(chunk=kw["chunk"], subchunk=kw["subchunk"], scalar_decay=True)
+        with torch.inference_mode():
+            worst = max(worst, mamba_scan_errors(torch, ssm_ref, q, k, v, g, y, s_fin,
+                                                 "bfloat16", chunks, row, f"mamba B{B} T{T}"))
+            # bit for bit what the kernel gives on contiguous copies
+            y_c, s_c = ssm_kernel.ssm_scan_fwd(q.contiguous(), k.contiguous(), v,
+                                               g.expand(B, T, H, K).contiguous())
+            check(torch.equal(y_c, y) and torch.equal(s_c, s_fin),
+                  f"mamba B{B} T{T}: the copy-free call differs from the copying one")
+            del y_c, s_c
+            # device memory: the op's call against the copying call's
+            free, _ = growth_bytes(torch, device, lambda: ssm_ops.ssm_scan(q, k, v, g, **chunks))
+            copying, _ = growth_bytes(torch, device, lambda: ssm_kernel.ssm_scan_fwd(
+                q.contiguous(), k.contiguous(), v, g.expand(B, T, H, K).contiguous()))
+            limit = y.numel() * y.element_size() + s_fin.numel() * 4 + 2 * ALLOC_SLACK
+            row["memory"] = {"copy_free_growth_bytes": free, "limit_bytes": limit,
+                             "copying_growth_bytes": copying,
+                             "copying_extra_bytes": copying - free}
+            check(free <= limit, f"mamba B{B} T{T}: the scan grew device memory by {free} bytes, "
+                                 f"more than y and the state ({limit})")
+            row["call_ms"] = {"copy_free": time_ms(lambda: ssm_kernel.ssm_scan_fwd(q, k, v, g),
+                                                   torch),
+                              "copying": time_ms(lambda: ssm_kernel.ssm_scan_fwd(
+                                  q.contiguous(), k.contiguous(), v,
+                                  g.expand(B, T, H, K).contiguous()), torch)}
+
+            # fp32: the same layer on the fp32 input, its scan at SSM_TOL
+            x32 = x.float()
+            with capture_scan(ssm_ops) as calls32:
+                out32, (s32, conv32) = tf.mamba_apply(p, x32, cfg)
+            (q, k, v, g), _, (y, s_fin) = calls32[0][0][:4], calls32[0][1], calls32[0][2]
+            worst = max(worst, mamba_scan_errors(torch, ssm_ref, q, k, v, g, y, s_fin,
+                                                 "float32", chunks, row, f"mamba B{B} T{T}"))
+            del calls32
+            # one decode step carries the prefill's ssm and conv state on
+            xt = torch.randn((B, 1, cfg.d_model), generator=gen, device=device)
+            o_dec, _ = tf.mamba_decode(p, xt, cfg, (s32, conv32))
+            o_ext, _ = tf.mamba_apply(p, torch.cat([x32, xt], dim=1), cfg)
+            dec_err = (o_dec[:, 0] - o_ext[:, -1]).abs().max().item()
+            dec_scale = o_ext[:, -1].abs().max().item()
+            row["fp32_decode_vs_longer_prefill"] = {"max_abs_diff": dec_err, "max_abs": dec_scale}
+            check(dec_err <= 1e-3 * dec_scale, f"mamba B{B} T{T}: a decode step after the "
+                                               f"prefill is {dec_err} from a longer prefill's "
+                                               f"last position (max |out| {dec_scale})")
+            del x32, out32, s32, conv32, o_dec, o_ext, q, k, v, g, y, s_fin, calls
+
+            # the layer's prefill: wall time, device busy time, the scan's share
+            layer = lambda: tf.mamba_apply(p, x, cfg)
+            wall = statistics.median(wall_ms(torch, layer, 3))
+            by_name, n_kernels, _, _, _ = profile_device(
+                torch, layer, complete=lambda counts: sum(
+                    c for n, c in counts.items() if "ssm_scan_kernel" in n) == 1)
+        busy = sum(by_name.values())
+        scan_ms = sum(ms for n, ms in by_name.items() if "ssm_scan_kernel" in n)
+        row["prefill_profile"] = {"wall_ms_unprofiled": wall, "device_busy_ms": busy,
+                                  "idle_share": 1.0 - busy / wall, "kernels": n_kernels,
+                                  "scan_kernel_ms": scan_ms,
+                                  "scan_kernel_share_of_busy": scan_ms / busy,
+                                  "tokens_per_s": B * T / wall * 1e3}
+        emit({"phase": "mamba_layer", **row})
+        rows.append(row)
+        del x, out, state, o
+        torch.cuda.empty_cache()
+    times = ssm_times(torch, ssm_kernel, ssm_ref, device, cases=MAMBA_MAIN_CASES)
+    del p
+    torch.cuda.empty_cache()
+    return rows, times, launches, worst
+
+
+def serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
+    """The hybrid serving path: jamba scaled down (fp32) through
+    repro_torch.launch.serve, its mamba layers' scan on the scan kernel and
+    its attention layers on flash's fp32 path, MoE every second layer.  Then
+    the prefill and the decode steps of the served tokens (teacher-forced)
+    through the kernels, through plain attention and the plain scan, and
+    through the kernels with the scan's inputs rounded to bf16
+    (``ssm_bf16_io``): the kernel path's logits within
+    HYBRID_FP32_LOGIT_LIMIT of the plain path's at every step and its
+    first tokens the same; the bf16-input path beyond the limit."""
+    from repro_torch.runtime.steps import make_serve_step
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    results, launches = [], {"scan": 0, "flash": 0}
+    for B, S, gen_len in HYBRID_WORKLOADS:
+        args = serve.parse_args(["--arch", HYBRID_ARCH, "--requests", str(B), "--prompt-len",
+                                 str(S), "--gen-len", str(gen_len), "--device", str(device),
+                                 "--seed", "0"])
+        api, params, tokens = serve.setup(args)
+        cfg = api.cfg
+        check(cfg == serve.get_config(HYBRID_ARCH).scaled_down(), f"not scaled down: {cfg}")
+        kinds = cfg.block_pattern() * cfg.n_blocks
+        n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+        serve.serve(api, params, tokens, 2)  # warm-up
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        res = serve.serve(api, params, tokens, gen_len)
+        fa = flash_counts(fa_kernel)
+        launches["scan"] += ssm_kernel.launches
+        launches["flash"] += fa[0]
+        check(ssm_kernel.launches == n_mamba, f"{ssm_kernel.launches} scan launches in a prefill "
+                                              f"and {gen_len - 1} decode steps, want {n_mamba}")
+        check(fa == (n_attn, 0, 0, n_attn), f"flash launches (all, TMA, mma.sync, fp32) {fa}, "
+                                            f"want {n_attn} on the fp32 path")
+        check(cs_kernel.launches == 0, "hybrid serving launched the checksum kernel")
+        toks = res["tokens"]
+        check(bool(torch.isfinite(res["logits"]).all()) and tuple(toks.shape) == (B, gen_len),
+              f"logits finite, tokens {tuple(toks.shape)}")
+
+        def run(model):
+            """Prefill logits, then each decode step's on the served tokens."""
+            lg, cache, _ = model.prefill(params, {"tokens": tokens}, pad_to=S + gen_len)
+            out, step = [lg], make_serve_step(model, greedy=False)
+            for i in range(gen_len - 1):
+                lg, cache = step(params, cache, toks[:, i:i + 1], S + i)
+                out.append(lg)
+            return torch.cat(out, dim=1)
+
+        plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
+        bf16_io = build(dataclasses.replace(cfg, ssm_bf16_io=True), device)
+        with torch.inference_mode():
+            ssm_kernel.launches = 0
+            lg_k = run(api)
+            lg_b = run(bf16_io)
+            check(ssm_kernel.launches == 2 * n_mamba, f"{ssm_kernel.launches} scan launches")
+            with plain_scan(ssm_ops, ssm_ref):
+                lg_p = run(plain)
+            check(ssm_kernel.launches == 2 * n_mamba, "the plain run launched the scan kernel")
+        diff = (lg_k - lg_p).abs().amax(dim=(0, 2))  # per position
+        diff_b = (lg_b - lg_p).abs().max().item()
+        first, first_plain = lg_k[:, 0].argmax(-1), lg_p[:, 0].argmax(-1)
+        row = {"arch": HYBRID_ARCH, "scaled_down": True, "n_layers": cfg.n_layers,
+               "mamba_layers": n_mamba, "attention_layers": n_attn,
+               "moe_layers": sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.attn_every))
+               * cfg.n_blocks, "d_model": cfg.d_model, "requests": B, "prompt_len": S,
+               "gen_len": gen_len, "scan_launches": n_mamba, "flash_launches": fa[0],
+               "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
+               "fp32_max_abs_logit_diff_by_step": diff.tolist(),
+               "fp32_logit_limit": HYBRID_FP32_LOGIT_LIMIT,
+               "fp32_share_of_limit": diff.max().item() / HYBRID_FP32_LOGIT_LIMIT,
+               "fp32_bf16_io_max_abs_logit_diff_vs_plain": diff_b,
+               "first_tokens": first.tolist(), "first_tokens_plain": first_plain.tolist(),
+               "sample_tokens": toks[0].tolist()}
+        emit({"phase": "serve_hybrid", **row})
+        check(bool((first == first_plain).all()),
+              f"greedy first tokens {first.tolist()}, plain {first_plain.tolist()}")
+        check(diff.max().item() <= HYBRID_FP32_LOGIT_LIMIT,
+              f"logits {diff.tolist()} from the plain path's, limit {HYBRID_FP32_LOGIT_LIMIT}")
+        check(diff_b > HYBRID_FP32_LOGIT_LIMIT,
+              f"the bf16-input scan's logits are {diff_b} from the plain path's, within the "
+              f"limit {HYBRID_FP32_LOGIT_LIMIT}: the limit tells nothing apart")
+        results.append(row)
+        del api, params, tokens, res, plain, bf16_io, lg_k, lg_b, lg_p
+        torch.cuda.empty_cache()
+    return results, launches
+
+
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -910,7 +1449,7 @@ def token_losses(api, params, batch, torch):
     the logsumexp, gold logit and logit variance beside it."""
     from repro_torch.models.transformer import final_hidden
     with torch.no_grad():
-        x, _ = final_hidden(params, batch, api.cfg)
+        x, _, _ = final_hidden(params, batch, api.cfg)
         logits = (x @ params["lm_head"]["w"].to(x.dtype)).float()
         labels = batch["labels"]
         valid = labels >= 0
@@ -1524,6 +2063,7 @@ def main() -> int:
     cfg = serve.get_config(ARCH)
     largest_leaf = ("largest training leaf, opt/m/lm_head/w", (cfg.d_model, cfg.vocab_size),
                     torch.float32)
+    kernels = (fa_kernel, cs_kernel, ssm_kernel)
     try:
         worst = kernel_check(torch, fa_kernel, fa_ref, device)
         cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
@@ -1533,28 +2073,37 @@ def main() -> int:
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
         serve_rows, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
                                                 ssm_kernel, device)
-        rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, (fa_kernel, cs_kernel, ssm_kernel),
-                                         ssm_ops, ssm_ref, device)
+        rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
+        _, moe_fa, moe_sync = serve_moe(torch, serve, build, kernels, device)
+        _, mamba_times, mamba_ssm, mamba_worst = mamba_layer(torch, kernels, ssm_ops, ssm_ref,
+                                                             device)
+        ssm_worst = max(ssm_worst, mamba_worst)
+        _, hybrid = serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
         train_fa, train_cs, mirror_cs, train_sync = train_full_width(
             torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device)
         torch.cuda.empty_cache()
         rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
-            torch, launch_train, (fa_kernel, cs_kernel, ssm_kernel), ssm_ops, ssm_ref, device)
+            torch, launch_train, kernels, ssm_ops, ssm_ref, device)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": sum(r["flash_mma_sync_launches"] for r in serve_rows),
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
-                   **train_sync, "train_rwkv": rwkv_train_sync}
+                   "serve_moe": moe_sync, **train_sync, "train_rwkv": rwkv_train_sync}
+    fa_by_path = {"serve": serve_fa, "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
+                  "serve_hybrid": hybrid["flash"], "train": train_fa, "train_rwkv": 0}
+    cs_by_path = {"serve": 0, "serve_rwkv": 0, "serve_moe": 0, "mamba_layer": 0,
+                  "serve_hybrid": 0, "train": train_cs, "train_mirror_restore": mirror_cs,
+                  "train_rwkv": 0}
+    ssm_by_path = {"serve": 0, "serve_rwkv": rwkv_ssm, "serve_moe": 0, "mamba_layer": mamba_ssm,
+                   "serve_hybrid": hybrid["scan"], "train": 0, "train_rwkv": rwkv_train_ssm}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "kernel": "attn_fwd_bf16_tma (TMA, wgmma)",
-        "launches": serve_fa + train_fa,
-        "launches_by_path": {"serve": serve_fa, "serve_rwkv": 0, "train": train_fa,
-                             "train_rwkv": 0},
+        "kernel": "attn_fwd_bf16_tma (TMA, wgmma); attn_fwd_f32 on serve_hybrid's fp32 path",
+        "launches": sum(fa_by_path.values()), "launches_by_path": fa_by_path,
         # read in each run of each main path, and checked to be 0 there
         "mma_sync_path_launches_by_run": sync_by_run,
         "mma_sync_path_launches": sum(sync_by_run.values()),
@@ -1562,18 +2111,14 @@ def main() -> int:
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
         "replaces": "src/repro/kernels/checksum/kernel.py:32",
-        "launches": train_cs + mirror_cs,
-        "launches_by_path": {"serve": 0, "serve_rwkv": 0, "train": train_cs,
-                             "train_mirror_restore": mirror_cs, "train_rwkv": 0},
+        "launches": sum(cs_by_path.values()), "launches_by_path": cs_by_path,
         "max_abs_err": cs_worst, **{k: cs_times[0][k] for k in keys}, "shapes": cs_times}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
-        "launches": rwkv_ssm + rwkv_train_ssm,
-        "launches_by_path": {"serve": 0, "serve_rwkv": rwkv_ssm, "train": 0,
-                             "train_rwkv": rwkv_train_ssm},
+        "launches": sum(ssm_by_path.values()), "launches_by_path": ssm_by_path,
         "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys},
-        "device_ms": s_times[0]["device_ms"], "shapes": s_times}]})
+        "device_ms": s_times[0]["device_ms"], "shapes": s_times + mamba_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

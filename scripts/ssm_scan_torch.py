@@ -12,8 +12,10 @@ each, all at once.  Each build runs through the wrapper
 ``chip_smoke.py``'s own ``ssm_check`` (its small, edge, wide and main
 cases, the decay of about -20 a step among them, in fp32 and bf16, at its
 limits), then timed by ``chip_smoke.py``'s ``ssm_times`` at the two served
-rwkv6 shapes (B4 T512 and B1 T5120, H 64, K = V = 64, bf16): the device
-time per launch from torch.profiler and CUDA-event time, beside the bound.
+rwkv6 shapes (B4 T512 and B1 T5120, H 64, K = V = 64, bf16) and at jamba's
+mamba layer's (the same B and T, H 256, one decay per head, q and k read
+in place as one row per (b, t)): the device time per launch from
+torch.profiler and CUDA-event time, beside the bound.
 A source given with ``--timed-only`` is built and timed but not checked:
 a copy with a part taken out, to see what that part costs.
 ``--rounds`` rounds of timing alternate the builds' order (forwards,
@@ -104,12 +106,15 @@ def main() -> int:
     for r in range(args.rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             kernel.load_variant(libs[name])
-            rows[name].append(chip_smoke.ssm_times(torch, kernel, ref, dev, plain=False))
+            rows[name].append(chip_smoke.ssm_times(
+                torch, kernel, ref, dev, plain=False,
+                cases=chip_smoke.SSM_MAIN_CASES + chip_smoke.MAMBA_MAIN_CASES))
     for name in order:
         for i, first in enumerate(rows[name][0]):
             dms = [run[i]["device_ms"] for run in rows[name]]
             ms = [run[i]["ms"] for run in rows[name]]
-            print(json.dumps({"build": name, "B": first["B"], "T": first["T"],
+            print(json.dumps({"build": name, "layout": first["layout"], "B": first["B"],
+                              "T": first["T"], "H": first["H"],
                               "device_ms": statistics.median(dms), "round_device_ms": dms,
                               "ms": statistics.median(ms), "round_ms": ms,
                               "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -47,6 +47,12 @@
 //    group that holds S in registers for the whole run;
 //  * K up to 128 takes the first kernel: the same chunks with every product
 //    in fp32 FFMA, register-tiled, one block per (b, h, 32 columns of V);
+//  * q, k and g are read in place through their (b, t, h) strides, so
+//    mamba's layout costs no copy: its q and k are C_t and B_t, one row per
+//    (b, t) for every head (head stride 0), and its g one log decay per
+//    (b, t, h) (g_head), staged as one value a row and read at k = 0.
+//    Contiguous (B, T, H, K) operands (rwkv6's) take their own instance of
+//    the tensor-core kernel, addressed with one row stride (DENSE);
 //  * T, K (<= 128) and V need not be multiples of anything: the ragged last
 //    chunk, rows of K past the data and columns past V are masked in the
 //    kernel, so no padding pass runs in device memory.  Offsets are 64-bit.
@@ -81,6 +87,32 @@ struct Params {
   float* s_fin;
   int B, T, H, K, V;
   int vec_qk, vec_g, vec_v, vec_y;  // rows may be moved 16 (y: 4 elements) at a time
+};
+
+// How q, k and g are laid out: their element strides over (b, t, h), K with
+// unit stride (a head stride of 0 reads one row for every head: mamba's C_t
+// and B_t), and whether g holds one log decay per (b, t, h) for every k.  A
+// kernel argument of its own: with these fields inside Params, ptxas spilled
+// 12-32 bytes in the 128-register bf16 tensor-core instances (none without).
+struct Strides {
+  long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, g_sb, g_st, g_sh;
+  int g_head;
+  int dense;  // q, k, g are contiguous (B, T, H, K): one row stride, H K, for all three
+};
+
+// Where the rows of (b, h) start in q, k and g: through their strides, or
+// at one element offset in all three.
+template <typename T>
+struct Rows {
+  const T* q;
+  const T* k;
+  const float* g;
+  __device__ Rows(const Params& p, const Strides& sd, int b, int h)
+      : q(static_cast<const T*>(p.q) + b * sd.q_sb + h * sd.q_sh),
+        k(static_cast<const T*>(p.k) + b * sd.k_sb + h * sd.k_sh),
+        g(p.g + b * sd.g_sb + h * sd.g_sh) {}
+  __device__ Rows(const void* q0, const void* k0, const float* g0, long long at)
+      : q(static_cast<const T*>(q0) + at), k(static_cast<const T*>(k0) + at), g(g0 + at) {}
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -213,7 +245,7 @@ struct Layout {
 };
 
 template <typename T, int KP, bool U>
-__global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p, const Strides sd) {
   using LY = Layout<T, KP>;
   constexpr int KR = KP / 32;         // state rows per thread
   constexpr int TPT = NS * KP / NT;   // (sub-chunk, k) tasks per thread: 1, 2 or 4
@@ -231,12 +263,9 @@ __global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
   T* rk = rq + L * KP;
   T* rv = rk + L * KP;
 
-  const long long HK = static_cast<long long>(p.H) * p.K;  // elements per time step
-  const long long HV = static_cast<long long>(p.H) * p.V;
-  const long long bth = static_cast<long long>(b) * p.T * p.H + h;  // (b, t = 0, h)
-  const T* gq = static_cast<const T*>(p.q) + bth * p.K;
-  const T* gk = static_cast<const T*>(p.k) + bth * p.K;
-  const float* gg = p.g + bth * p.K;
+  const long long HV = static_cast<long long>(p.H) * p.V;  // elements of v per time step
+  const long long bth = static_cast<long long>(b) * p.T * p.H + h;  // (b, t = 0, h) of v, y
+  const Rows<T> rows_in(p, sd, b, h);
   const T* gv = static_cast<const T*>(p.v) + bth * p.V + j0;
   T* gy = static_cast<T*>(p.y) + bth * p.V + j0;
   const long long sbase = (static_cast<long long>(b) * p.H + h) * p.K;  // row (b, h, 0)
@@ -258,13 +287,14 @@ __global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
 
   // this thread's prep tasks: (sub-chunk tid / KP + i * NT / KP, k = tid % KP)
   const int pk = tid % KP;
+  const int gk_n = sd.g_head ? 1 : p.K, gk = sd.g_head ? 0 : pk;  // g's row length, k's place
   const float u_k = (U && pk < p.K) ? p.u[static_cast<long long>(h) * p.K + pk] : 0.f;
 
   auto issue = [&](int c) {
     const int t0 = c * L, rows = min(L, p.T - t0);
-    stage_rows<NT>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
-    stage_rows<NT>(rk, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
-    stage_rows<NT>(rg, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
+    stage_rows<NT>(rq, KP, rows_in.q + t0 * sd.q_st, sd.q_st, rows, p.K, p.vec_qk);
+    stage_rows<NT>(rk, KP, rows_in.k + t0 * sd.k_st, sd.k_st, rows, p.K, p.vec_qk);
+    stage_rows<NT>(rg, KP, rows_in.g + t0 * sd.g_st, sd.g_st, rows, gk_n, p.vec_g);
     stage_rows<NT>(rv, VB, gv + t0 * HV, HV, rows, vw, p.vec_v);
     cp_async_commit();
   };
@@ -288,7 +318,7 @@ __global__ void __launch_bounds__(NT, 1) ssm_scan_kernel(const Params p) {
         const bool ok = t < nt && pk < p.K;  // past T or K: q = k = 0, a = 1 (inert)
         qv[r] = ok ? to_f(rq[t * KP + pk]) : 0.f;
         kv[r] = ok ? to_f(rk[t * KP + pk]) : 0.f;
-        av[r] = ok ? expf(rg[t * KP + pk]) : 1.f;
+        av[r] = ok ? expf(rg[t * KP + gk]) : 1.f;
       }
       st4(QF + pk * LP + s * R, qv);
       st4(KF + pk * LP + s * R, kv);
@@ -610,8 +640,9 @@ struct LayoutM {
   static constexpr size_t BYTES = FLOATS * sizeof(float) + NSTG * RAW * sizeof(T);
 };
 
-template <typename T, int KP, bool U, int VBM>
-__global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const Params p) {
+template <typename T, int KP, bool U, int VBM, bool DENSE>
+__global__ void __launch_bounds__(NPREP + 2 * VBM, 1)
+    ssm_scan_kernel_mma(const Params p, const Strides sd) {
   using LY = LayoutM<T, KP, VBM>;
   constexpr bool V_EXACT = sizeof(T) == 2;  // bf16 v: exact in TF32, no lo half
   constexpr int NTH = NPREP + 2 * VBM;      // VBM / 16 state warps
@@ -641,19 +672,24 @@ __global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const 
 
   if (tid < NPREP) {
     // ---- the prep warps ----
-    const T* gq = static_cast<const T*>(p.q) + bth * p.K;
-    const T* gk = static_cast<const T*>(p.k) + bth * p.K;
-    const float* gg = p.g + bth * p.K;
+    // DENSE (rwkv6's operands): q, k and g addressed with one row stride, as
+    // before the kernel took strides; through the strides this instance ran
+    // 2.4% slower at B1 T5120, H 64 (H100)
+    const Rows<T> rows_in = DENSE ? Rows<T>(p.q, p.k, p.g, bth * p.K) : Rows<T>(p, sd, b, h);
+    const long long sq = DENSE ? HK : sd.q_st, sk = DENSE ? HK : sd.k_st,
+                    sg = DENSE ? HK : sd.g_st;
     const T* gv = static_cast<const T*>(p.v) + bth * p.V + j0;
+    const int gk_n = DENSE || !sd.g_head ? p.K : 1;  // g's row length: K, or one per (b, t, h)
     // chunk c's raw rows sit in stage c % NSTG; every issue commits one
     // cp.async group, empty past the last chunk, so that the wait counts
     auto issue = [&](int c) {
       if (c * L < p.T) {
         const int t0 = c * L, rows = min(L, p.T - t0), st = c % NSTG;
         T* rq = raw + st * LY::RAW;
-        stage_rows<NPREP>(rq, KP, gq + t0 * HK, HK, rows, p.K, p.vec_qk);
-        stage_rows<NPREP>(rq + L * KP, KP, gk + t0 * HK, HK, rows, p.K, p.vec_qk);
-        stage_rows<NPREP>(sm + LY::RG + st * L * KP, KP, gg + t0 * HK, HK, rows, p.K, p.vec_g);
+        stage_rows<NPREP>(rq, KP, rows_in.q + t0 * sq, sq, rows, p.K, p.vec_qk);
+        stage_rows<NPREP>(rq + L * KP, KP, rows_in.k + t0 * sk, sk, rows, p.K, p.vec_qk);
+        stage_rows<NPREP>(sm + LY::RG + st * L * KP, KP, rows_in.g + t0 * sg, sg, rows, gk_n,
+                          p.vec_g);
         stage_rows<NPREP>(rq + 2 * L * KP, VBM, gv + t0 * HV, HV, rows, vw, p.vec_v);
       }
       cp_async_commit();
@@ -677,6 +713,7 @@ __global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const 
       for (int i = 0; i < TPP; ++i) {
         const int task = tid + i * NPREP, s = task / KP, k = task % KP;
         if (task < NTASK) {
+          const int gk = DENSE || !sd.g_head ? k : 0;  // k's place in a row of g
           float qv[R], kv[R], av[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -684,7 +721,7 @@ __global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const 
             const bool ok = t < nt && k < p.K;  // past T or K: q = k = 0, a = 1 (inert)
             qv[r] = ok ? to_f(rq[t * KP + k]) : 0.f;
             kv[r] = ok ? to_f(rk[t * KP + k]) : 0.f;
-            av[r] = ok ? exp_fast(rg[t * KP + k]) : 1.f;
+            av[r] = ok ? exp_fast(rg[t * KP + gk]) : 1.f;
           }
           st4(QF + k * LP + s * R, qv);
           st4(KF + k * LP + s * R, kv);
@@ -918,7 +955,7 @@ __global__ void __launch_bounds__(NPREP + 2 * VBM, 1) ssm_scan_kernel_mma(const 
 // then launches it on a (V / vb, H, B) grid.
 template <typename Kernel>
 cudaError_t launch(Kernel* kernel, size_t smem, int threads, int vb, unsigned long long& done,
-                   const Params& p, cudaStream_t stream) {
+                   const Params& p, const Strides& sd, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -930,7 +967,7 @@ cudaError_t launch(Kernel* kernel, size_t smem, int threads, int vb, unsigned lo
     done |= 1ull << dev;
   }
   const dim3 grid((p.V + vb - 1) / vb, p.H, p.B);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p, sd);
   return cudaGetLastError();
 }
 
@@ -949,61 +986,84 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
-template <typename T, int KP, bool U, int VBM>
-cudaError_t launch_mma_vb(const Params& p, cudaStream_t stream) {
+template <typename T, int KP, bool U, int VBM, bool DENSE>
+cudaError_t launch_mma_vb(const Params& p, const Strides& sd, cudaStream_t stream) {
   constexpr size_t smem = LayoutM<T, KP, VBM>::BYTES;
   static_assert(smem <= 232448, "more shared memory than a block may have");
   static unsigned long long done = 0;
-  return launch(ssm_scan_kernel_mma<T, KP, U, VBM>, smem, NPREP + 2 * VBM, VBM, done, p,
-                stream);
+  return launch(ssm_scan_kernel_mma<T, KP, U, VBM, DENSE>, smem, NPREP + 2 * VBM, VBM, done, p,
+                sd, stream);
+}
+
+template <typename T, int KP, bool U, int VBM>
+cudaError_t launch_mma_layout(const Params& p, const Strides& sd, cudaStream_t stream) {
+  return sd.dense ? launch_mma_vb<T, KP, U, VBM, true>(p, sd, stream)
+                 : launch_mma_vb<T, KP, U, VBM, false>(p, sd, stream);
 }
 
 // 64 columns of V a block where that fills the card, else 32
 template <typename T, int KP, bool U>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+cudaError_t launch_mma(const Params& p, const Strides& sd, cudaStream_t stream) {
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long blocks64 = static_cast<long long>(p.B) * p.H * ((p.V + 63) / 64);
-  return blocks64 >= sms ? launch_mma_vb<T, KP, U, 64>(p, stream)
-                         : launch_mma_vb<T, KP, U, 32>(p, stream);
+  return blocks64 >= sms ? launch_mma_layout<T, KP, U, 64>(p, sd, stream)
+                         : launch_mma_layout<T, KP, U, 32>(p, sd, stream);
 }
 
 template <typename T, int KP, bool U>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, const Strides& sd, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, KP>::BYTES;
   static_assert(smem <= 232448, "more shared memory than a block may have");
   static unsigned long long done = 0;
-  return launch(ssm_scan_kernel<T, KP, U>, smem, NT, VB, done, p, stream);
+  return launch(ssm_scan_kernel<T, KP, U>, smem, NT, VB, done, p, sd, stream);
 }
 
 template <typename T, bool U>
-cudaError_t dispatch_k(const Params& p, cudaStream_t stream) {
-  if (p.K <= 32) return launch_mma<T, 32, U>(p, stream);
-  if (p.K <= 64) return launch_mma<T, 64, U>(p, stream);
-  return launch_f32<T, 128, U>(p, stream);
+cudaError_t dispatch_k(const Params& p, const Strides& sd, cudaStream_t stream) {
+  if (p.K <= 32) return launch_mma<T, 32, U>(p, sd, stream);
+  if (p.K <= 64) return launch_mma<T, 64, U>(p, sd, stream);
+  return launch_f32<T, 128, U>(p, sd, stream);
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  return p.u != nullptr ? dispatch_k<T, true>(p, stream) : dispatch_k<T, false>(p, stream);
+cudaError_t dispatch(const Params& p, const Strides& sd, cudaStream_t stream) {
+  return p.u != nullptr ? dispatch_k<T, true>(p, sd, stream)
+                        : dispatch_k<T, false>(p, sd, stream);
 }
 
 }  // namespace
 
-// y (B, T, H, V) in q's type and s_fin (B, H, K, V) fp32 from contiguous
-// q, k (B, T, H, K), v (B, T, H, V) of one type (is_bf16: bf16, else fp32),
-// g (B, T, H, K) fp32, u (H, K) fp32 or null, s0 (B, H, K, V) fp32 or null,
-// on `stream`.  Returns the launch's cudaError_t (0 on success).
+// y (B, T, H, V) in q's type and s_fin (B, H, K, V) fp32 from q, k (B, T, H, K)
+// and contiguous v (B, T, H, V) of one type (is_bf16: bf16, else fp32), g fp32,
+// u (H, K) fp32 or null, s0 (B, H, K, V) fp32 or null, on `stream`.  q, k and
+// g are read through their (b, t, h) element strides, K with unit stride; g
+// holds K log decays per (b, t, h), or one for every k where g_head is set.
+// vec_qk / vec_g: every row of q and k / g starts 16-byte aligned and fills
+// whole 16-byte pieces.  Returns the launch's cudaError_t (0 on success).
 extern "C" int repro_ssm_scan_fwd(const void* q, const void* k, const void* v, const float* g,
                                   const float* u, const float* s0, void* y, float* s_fin,
-                                  int is_bf16, int B, int T, int H, int K, int V, int vec_qk,
-                                  int vec_g, int vec_v, void* stream) {
+                                  int is_bf16, int B, int T, int H, int K, int V,
+                                  long long q_sb, long long q_st, long long q_sh,
+                                  long long k_sb, long long k_st, long long k_sh,
+                                  long long g_sb, long long g_st, long long g_sh, int g_head,
+                                  int vec_qk, int vec_g, int vec_v, void* stream) {
   if (B < 0 || T < 0 || H < 0 || K < 1 || K > MAX_K || V < 1 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   const int vec_y = V % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
-  const Params p{q, k, v, g, u, s0, y, s_fin, B, T, H, K, V, vec_qk, vec_g, vec_v, vec_y};
+  // contiguous (B, T, H, K): an axis of one entry may have any stride
+  const long long HK = static_cast<long long>(H) * K;
+  auto contiguous = [&](long long sb, long long st, long long sh) {
+    return (B == 1 || sb == T * HK) && (T == 1 || st == HK) && (H == 1 || sh == K);
+  };
+  const int dense = !g_head && contiguous(q_sb, q_st, q_sh) && contiguous(k_sb, k_st, k_sh) &&
+                    contiguous(g_sb, g_st, g_sh);
+  // a row of one g per (b, t, h) is staged element by element
+  const Params p{q, k, v, g, u, s0, y, s_fin, B, T, H, K, V,
+                 vec_qk, g_head ? 0 : vec_g, vec_v, vec_y};
+  const Strides sd{q_sb, q_st, q_sh, k_sb, k_st, k_sh, g_sb, g_st, g_sh, g_head, dense};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? dispatch<bf16>(p, s) : dispatch<float>(p, s));
+  return static_cast<int>(is_bf16 ? dispatch<bf16>(p, sd, s) : dispatch<float>(p, sd, s));
 }

@@ -2,8 +2,9 @@
 
 ``python -m repro_torch.launch.serve --arch h2o-danube-3-4b --requests 4``
 serves a scaled-down model on the card; ``--no-scaled-down`` serves the
-full-width config, ``--device cpu`` runs on the CPU.  The dense family and
-rwkv6-7b are ported; the other families raise and name their ROADMAP item.  Weights and prompts
+full-width config, ``--device cpu`` runs on the CPU.  The dense and MoE
+families, jamba (mamba2 and attention, with MoE) and rwkv6-7b are ported;
+whisper and llava raise and name their ROADMAP item.  Weights and prompts
 are random, drawn from ``torch.Generator``s seeded with ``--seed`` and
 ``--seed + 1``.
 """

@@ -6,7 +6,10 @@ the train step, async checkpoints with lanesum32 digests, restart from
 the latest checkpoint and, with ``--replicate-to <provider>``, each
 checkpoint replicated to an emulated cloud object store by a third-party
 ``TransferService`` task that re-verifies the lanesum32 digests at the
-destination (paper §2.1, §7).  It trains a scaled-down model on the card;
+destination (paper §2.1, §7).  Every family the port builds trains: the
+dense and MoE families (the MoE load-balance loss joins the objective, as
+in the reference), jamba and rwkv6; jamba's ``--n-layers`` must divide by
+its 8-layer block.  It trains a scaled-down model on the card;
 ``--no-scaled-down`` (or ``--full-size``) trains the full-width config,
 ``--n-layers`` cuts its depth, ``--device cpu`` runs on the CPU.  Weights
 are random, drawn from a ``torch.Generator`` seeded with ``--seed``; the

@@ -1,8 +1,9 @@
 """Public model API of the port, after ``repro/models/registry.py``.
 
 ``build(cfg, device)`` returns a ``ModelApi`` whose functions run on
-``device`` (default ``cuda``).  The port trains and serves the dense
-family and serves rwkv6 (the ``ssm`` family) so far.
+``device`` (default ``cuda``).  The port builds the dense, MoE, hybrid
+(jamba: mamba2 and attention, with MoE) and ``ssm`` (rwkv6) families; the
+encoder-decoder and VLM families raise and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ from .common import ArchConfig
 
 #: families still to port, with the ROADMAP.md item that ports each
 PENDING_FAMILIES = {
-    "moe": "ROADMAP A10 (MoE)",
-    "hybrid": "ROADMAP A10 (MoE, with the mamba mixer)",
     "audio": "ROADMAP A11 (encoder-decoder and VLM)",
     "vlm": "ROADMAP A11 (encoder-decoder and VLM)",
 }

@@ -1,18 +1,18 @@
 """Decoder stack, ported from ``repro/models/transformer.py``.
 
 A model is a stack of blocks, each a list of (mixer, ffn) layers as the
-reference's ``_layer_kinds`` gives them.  Ported so far: the dense family
-(attention + dense MLP) and rwkv6 (time mix + channel mix).  The mamba
-mixer, MoE and cross-attention raise in ``_layer_kinds`` and name their
-ROADMAP item (``registry.build`` refuses those families, and VLMs, first).
-Blocks are stacked on a leading axis as in the reference, and the
+reference's ``_layer_kinds`` gives them: the mixer attention, the mamba2
+mixer (jamba) or the rwkv6 time mix; the ffn a dense MLP, MoE or the rwkv
+channel mix.  Cross-attention (whisper) raises in ``_layer_kinds`` and
+names its ROADMAP item (``registry.build`` refuses that family, and VLMs,
+first).  Blocks are stacked on a leading axis as in the reference, and the
 reference's ``lax.scan`` over blocks is a Python loop over that axis.
 ``remat="block"`` (the reference's ``jax.checkpoint`` in ``_scan_blocks``)
 is ``torch.utils.checkpoint`` around each block while autograd records;
 the backward then runs each block's forward once more.  The decode caches
 keep the reference layouts, ``(n_blocks, n_attn, B, S_max, KV, dh)`` for
-attention and ``(n_blocks, n_rwkv, B, ...)`` for rwkv, and are updated in
-place.
+attention and ``(n_blocks, n_mamba or n_rwkv, B, ...)`` for the recurrent
+layers, and are updated in place.
 """
 
 from __future__ import annotations
@@ -28,12 +28,11 @@ from .common import ArchConfig
 from .layers import (_normal, attention_apply, attention_decode,
                      attention_init, chunked_xent, linear, linear_init,
                      mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
+from .moe import moe_apply, moe_init
 from .ssm import ssm_decode_step
 
 #: layer kinds still to port, with the ROADMAP.md item that ports each
-PENDING_KINDS = {"mamba": "ROADMAP A10 (MoE, with the mamba mixer)",
-                 "moe": "ROADMAP A10 (MoE, with the mamba mixer)",
-                 "cross-attention": "ROADMAP A11 (encoder-decoder and VLM)"}
+PENDING_KINDS = {"cross-attention": "ROADMAP A11 (encoder-decoder and VLM)"}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -52,6 +51,112 @@ def _tree_map(fn, *trees):
 def _index(tree, i):
     """Block ``i`` of the stacked blocks (views, no copy)."""
     return _tree_map(lambda x: x[i], tree)
+
+
+# ===========================================================================
+# mamba2 mixer (jamba's SSM layers)
+# ===========================================================================
+def _mamba_dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner, d_inner // s.head_dim
+
+
+def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    """The projections in ``dtype``; ``A_log``, ``dt_bias`` and ``D`` in
+    fp32, as in the reference."""
+    s = cfg.ssm
+    d, (d_inner, H) = cfg.d_model, _mamba_dims(cfg)
+    K = s.d_state
+    dev = gen.device
+    return {
+        "wx": linear_init(gen, d, d_inner, dtype),
+        "wz": linear_init(gen, d, d_inner, dtype),
+        "wB": linear_init(gen, d, K, dtype),
+        "wC": linear_init(gen, d, K, dtype),
+        "wdt": linear_init(gen, d, H, dtype),
+        "out": linear_init(gen, d_inner, d, dtype,
+                           scale=1.0 / math.sqrt(d_inner * 2 * cfg.n_layers)),
+        "conv_w": _normal(gen, (s.d_conv, d_inner), dtype, 0.5),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32, device=dev)),
+        "dt_bias": torch.full((H,), -4.6, dtype=torch.float32, device=dev),  # softplus ~ 0.01
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "norm_y": rmsnorm_init(d_inner, dtype, dev),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv via shifts.  x: (B, S, D); w: (k, D); state:
+    (B, k - 1, D) trailing inputs from the previous segment, or None."""
+    kk, S = w.shape[0], x.shape[1]
+    y = x * w[kk - 1]
+    ext = None if state is None else torch.cat([state, x], dim=1)
+    for i in range(1, kk):
+        if ext is None:
+            shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+        else:
+            start = state.shape[1] - i
+            shifted = ext[:, start:start + S]
+        y = y + shifted * w[kk - 1 - i]
+    return y
+
+
+def mamba_apply(p, x, cfg: ArchConfig, state=None):
+    """x: (B, S, d).  Returns (y, (ssm_state, conv_state)).  The scan runs
+    through ``ssm_ops.ssm_scan`` with one log decay per (b, t, h) and q, k
+    the (B, S, K) projections C_t and B_t expanded over the heads, as views:
+    the kernel reads them in place."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    d_inner, H = _mamba_dims(cfg)
+    K, dh = s.d_state, s.head_dim
+    xz = linear(p["wx"], x)
+    z = linear(p["wz"], x)
+    conv_state_in = None if state is None else state[1]
+    xc = F.silu(_causal_conv(xz, p["conv_w"].to(x.dtype), conv_state_in))
+    Bt = linear(p["wB"], x)                          # (B, S, K)
+    Ct = linear(p["wC"], x)                          # (B, S, K)
+    dt = F.softplus(linear(p["wdt"], x).float() + p["dt_bias"])  # (B, S, H)
+    g = (-torch.exp(p["A_log"]) * dt)[..., None]     # (B, S, H, 1) log decay
+    v = xc.reshape(B, S, H, dh) * dt.to(x.dtype)[..., None]  # dt-scaled input
+    q = Ct[:, :, None, :].expand(B, S, H, K)
+    k = Bt[:, :, None, :].expand(B, S, H, K)
+    y, ssm_state = ssm_ops.ssm_scan(q, k, v, g, initial_state=None if state is None else state[0],
+                                    chunk=min(s.chunk, S), subchunk=min(s.subchunk, S),
+                                    scalar_decay=True,
+                                    shard_constrain=cfg.ssm_shard_constraints,
+                                    io_dtype=torch.bfloat16 if cfg.ssm_bf16_io
+                                    else torch.float32)
+    y = y + p["D"].to(x.dtype)[None, None, :, None] * xc.reshape(B, S, H, dh)
+    y = rmsnorm(p["norm_y"], y.reshape(B, S, d_inner) * F.silu(z), cfg.norm_eps)
+    # (the reference's slice: a prompt shorter than d_conv - 1 keeps fewer rows)
+    conv_state = (xz[:, S - (s.d_conv - 1):] if state is None
+                  else torch.cat([conv_state_in, xz], dim=1)[:, -(s.d_conv - 1):])
+    return linear(p["out"], y), (ssm_state, conv_state)
+
+
+def mamba_decode(p, x, cfg: ArchConfig, state):
+    """One token.  x: (B, 1, d); state = (ssm (B, H, K, V) fp32, conv
+    (B, k - 1, d_inner)).  The plain one-token step, as in the reference."""
+    s = cfg.ssm
+    B = x.shape[0]
+    d_inner, H = _mamba_dims(cfg)
+    K, dh = s.d_state, s.head_dim
+    ssm_state, conv_state = state
+    xz = linear(p["wx"], x)                          # (B, 1, d_inner)
+    z = linear(p["wz"], x)
+    ext = torch.cat([conv_state, xz], dim=1)         # (B, k, d_inner)
+    xc = F.silu(torch.einsum("bkd,kd->bd", ext, p["conv_w"].to(x.dtype)))[:, None]
+    Bt, Ct = linear(p["wB"], x), linear(p["wC"], x)
+    dt = F.softplus(linear(p["wdt"], x).float() + p["dt_bias"])[:, 0]  # (B, H)
+    g = -torch.exp(p["A_log"]) * dt                  # (B, H)
+    v = xc.reshape(B, H, dh) * dt.to(x.dtype)[..., None]
+    q = Ct[:, 0, None, :].expand(B, H, K)
+    k = Bt[:, 0, None, :].expand(B, H, K)
+    y, ssm_new = ssm_decode_step(q, k, v, g[..., None].expand(B, H, K), ssm_state)
+    y = y + p["D"].to(x.dtype)[None, :, None] * xc.reshape(B, H, dh)
+    y = rmsnorm(p["norm_y"], y.reshape(B, 1, d_inner) * F.silu(z), cfg.norm_eps)
+    return linear(p["out"], y), (ssm_new, ext[:, 1:])
 
 
 # ===========================================================================
@@ -174,9 +279,9 @@ def cmix_apply(p, x, cfg: ArchConfig, state=None):
 # block = a list of (mixer, ffn) layers
 # ===========================================================================
 def _layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """[(mixer, ffn)] per layer inside one block: ("attn", "dense") or
-    ("rwkv", "cmix").  The kinds still to port raise here, naming their
-    ROADMAP item, so the functions below see only ported kinds."""
+    """[(mixer, ffn)] per layer inside one block: mixer "attn", "mamba" or
+    "rwkv"; ffn "dense", "moe" or "cmix".  Cross-attention raises here,
+    naming its ROADMAP item, so the functions below see only ported kinds."""
     out = []
     for i, mixer in enumerate(cfg.block_pattern()):
         if mixer == "rwkv":
@@ -196,51 +301,56 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, dtype):
     for mixer, ffn in _layer_kinds(cfg):
         layer = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
                  "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device)}
-        if mixer == "attn":
-            layer["attn"] = attention_init(gen, cfg, dtype)
-        else:
-            layer["rwkv"] = rwkv_init(gen, cfg, dtype)
-        if ffn == "dense":
-            layer["mlp"] = mlp_init(gen, cfg, dtype)
-        else:
-            layer["cmix"] = cmix_init(gen, cfg, dtype)
+        init = {"attn": attention_init, "mamba": mamba_init, "rwkv": rwkv_init}[mixer]
+        layer[mixer] = init(gen, cfg, dtype)
+        name, init = {"dense": ("mlp", mlp_init), "moe": ("moe", moe_init),
+                      "cmix": ("cmix", cmix_init)}[ffn]
+        layer[name] = init(gen, cfg, dtype)
         layers.append(layer)
     return {"layers": layers}
 
 
 def block_apply(bp, x, cfg: ArchConfig, *, causal=True, collect_cache=False):
-    """Full-sequence pass through one block.  Returns (x, cache), the cache
-    holding only the kinds this block has."""
-    cache = {"attn_k": [], "attn_v": [], "ssm": [], "shift_t": [], "shift_c": []}
+    """Full-sequence pass through one block.  Returns (x, cache, aux): the
+    cache holds only the kinds this block has, aux is the sum of its MoE
+    layers' load-balance losses (fp32, 0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache = {"attn_k": [], "attn_v": [], "ssm": [], "conv": [], "shift_t": [],
+             "shift_c": []}
     for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
         if mixer == "attn":
             out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
-            if collect_cache:
-                cache["attn_k"].append(k)
-                cache["attn_v"].append(v)
+            kept = {"attn_k": k, "attn_v": v}
+        elif mixer == "mamba":
+            out, (s_ssm, s_conv) = mamba_apply(layer["mamba"], h, cfg)
+            kept = {"ssm": s_ssm, "conv": s_conv}
         else:
             out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
-            if collect_cache:
-                cache["ssm"].append(s_ssm)
-                cache["shift_t"].append(last)
+            kept = {"ssm": s_ssm, "shift_t": last}
         x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             out = mlp_apply(layer["mlp"], h, cfg)
+        elif ffn == "moe":
+            out, moe_aux = moe_apply(layer["moe"], h, cfg)
+            aux = aux + moe_aux["moe_aux"]
         else:
-            out, last_c = cmix_apply(layer["cmix"], h, cfg)
-            if collect_cache:
-                cache["shift_c"].append(last_c)
+            out, kept["shift_c"] = cmix_apply(layer["cmix"], h, cfg)
         x = x + out
-    return x, {k: torch.stack(v) for k, v in cache.items() if v}
+        if collect_cache:
+            for key, t in kept.items():
+                cache[key].append(t)
+    return x, {k: torch.stack(v) for k, v in cache.items() if v}, aux
 
 
 def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
     """One-token pass; ``cache`` holds this block's stacked state tensors
-    ((n_attn, B, S_max, KV, dh) KV caches; (n_rwkv, B, ...) rwkv states)
-    and is updated in place."""
-    n = {"attn": 0, "rwkv": 0}
+    ((n_attn, B, S_max, KV, dh) KV caches; (n_mamba or n_rwkv, B, ...)
+    recurrent states) and is updated in place.  Each kind of state has its
+    own counter, advanced where the state is read: a mamba layer has no
+    channel mix, so its ``ssm`` counter advances in the mixer branch."""
+    n = {"attn": 0, "ssm": 0, "shift_c": 0}
     for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
         if mixer == "attn":
@@ -248,21 +358,31 @@ def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
             out, _, _ = attention_decode(layer["attn"], h, cache["attn_k"][j],
                                          cache["attn_v"][j], pos, cfg)
             n["attn"] += 1
+        elif mixer == "mamba":
+            j = n["ssm"]
+            out, (s_ssm, s_conv) = mamba_decode(layer["mamba"], h, cfg,
+                                                (cache["ssm"][j], cache["conv"][j]))
+            cache["ssm"][j].copy_(s_ssm)
+            cache["conv"][j].copy_(s_conv)
+            n["ssm"] += 1
         else:
-            j = n["rwkv"]
+            j = n["ssm"]
             out, (s_ssm, last) = rwkv_time_mix_decode(
                 layer["rwkv"], h, cfg, (cache["ssm"][j], cache["shift_t"][j]))
             cache["ssm"][j].copy_(s_ssm)
             cache["shift_t"][j].copy_(last)
+            n["ssm"] += 1
         x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             out = mlp_apply(layer["mlp"], h, cfg)
+        elif ffn == "moe":
+            out, _ = moe_apply(layer["moe"], h, cfg)
         else:
-            j = n["rwkv"]
+            j = n["shift_c"]
             out, last_c = cmix_apply(layer["cmix"], h, cfg, state=cache["shift_c"][j])
             cache["shift_c"][j].copy_(last_c)
-            n["rwkv"] += 1
+            n["shift_c"] += 1
         x = x + out
     return x, cache
 
@@ -293,7 +413,8 @@ def _embed(params, tokens, cfg: ArchConfig):
 
 
 def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
-    """Returns (normed hidden (B, S, d), cache stacked over blocks)."""
+    """Returns (normed hidden (B, S, d), the MoE load-balance loss summed
+    over blocks (fp32), cache stacked over blocks)."""
     if cfg.remat == "dots":
         raise NotImplementedError(
             f"final_hidden: remat={cfg.remat!r} needs a selective checkpoint "
@@ -302,31 +423,33 @@ def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     x = _embed(params, batch["tokens"], cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
         bp = _index(params["blocks"], i)
         if remat:
-            x, cache = checkpoint(block_apply, bp, x, cfg, causal=True,
-                                  collect_cache=collect_cache, use_reentrant=False)
+            x, cache, aux_i = checkpoint(block_apply, bp, x, cfg, causal=True,
+                                         collect_cache=collect_cache, use_reentrant=False)
         else:
-            x, cache = block_apply(bp, x, cfg, causal=True,
-                                   collect_cache=collect_cache)
+            x, cache, aux_i = block_apply(bp, x, cfg, causal=True,
+                                          collect_cache=collect_cache)
+        aux = aux + aux_i
         caches.append(cache)
     caches = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
               if collect_cache else {})
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caches
 
 
-def loss_fn(params, batch, cfg: ArchConfig):
+def loss_fn(params, batch, cfg: ArchConfig, aux_weight: float = 0.01):
     """Mean next-token xent of ``batch["tokens"]`` against
-    ``batch["labels"]`` (-1 ignored).  Returns (loss, metrics) as the
-    reference does; the ported families have no MoE auxiliary loss, so
-    ``loss == xent`` and ``moe_aux`` is 0."""
-    x, _ = final_hidden(params, batch, cfg)
+    ``batch["labels"]`` (-1 ignored), plus ``aux_weight`` times the MoE
+    load-balance loss (0 without MoE).  Returns (loss, {"xent", "moe_aux"})
+    as the reference does."""
+    x, aux, _ = final_hidden(params, batch, cfg)
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["w"].T)
     xent = chunked_xent(table, x, batch["labels"],
                         chunk=min(cfg.logit_chunk, x.shape[1]))
-    return xent, {"xent": xent, "moe_aux": xent.new_zeros(())}
+    return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
 
 
 def logits_last(params, x_last, cfg: ArchConfig):
@@ -340,7 +463,7 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     """Builds a serving cache; returns (last-token logits, cache, pos).
 
     ``pad_to`` sizes the attention KV cache for subsequent decode."""
-    x, caches = final_hidden(params, batch, cfg, collect_cache=True)
+    x, _, caches = final_hidden(params, batch, cfg, collect_cache=True)
     S = batch["tokens"].shape[1]
     if pad_to is not None and pad_to > S and "attn_k" in caches:
         for key in ("attn_k", "attn_v"):
@@ -362,18 +485,27 @@ def decode_step(params, cache, token, pos: int, cfg: ArchConfig):
 
 def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
                       dtype=None):
-    """Zero decode cache: KV caches for attention layers; for rwkv layers
-    the fp32 recurrent state and the two token-shift rows."""
+    """Zero decode cache: KV caches for attention layers; for mamba layers
+    the fp32 recurrent state (d_state x head_dim) and the last d_conv - 1
+    inputs of the conv; for rwkv layers the fp32 recurrent state and the
+    two token-shift rows."""
     dtype = dtype or _dtype(cfg.compute_dtype)
     kinds = _layer_kinds(cfg)
     nb = cfg.n_blocks
     n_attn = sum(1 for m, _ in kinds if m == "attn")
+    n_mamba = sum(1 for m, _ in kinds if m == "mamba")
     n_rwkv = sum(1 for m, _ in kinds if m == "rwkv")
     cache = {}
     if n_attn:
         shape = (nb, n_attn, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_mamba:
+        d_inner, H = _mamba_dims(cfg)
+        cache["ssm"] = torch.zeros((nb, n_mamba, batch, H, cfg.ssm.d_state, cfg.ssm.head_dim),
+                                   dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((nb, n_mamba, batch, cfg.ssm.d_conv - 1, d_inner),
+                                    dtype=dtype, device=device)
     if n_rwkv:
         H, hd = _rwkv_dims(cfg)
         cache["ssm"] = torch.zeros((nb, n_rwkv, batch, H, hd, hd),

@@ -1,7 +1,9 @@
 """The port's checkpoints over its POSIX Connector: the round-trip,
 coalescing, corruption and async+GC cases of tests/test_ckpt_data.py, and
 checkpoints that cross between the JAX reference and the port on one
-directory, with byte-identical manifests."""
+directory, with byte-identical manifests; among them the parameters of
+scaled-down granite-moe and jamba (stacked expert weights, fp32 router and
+mamba leaves inside a bf16 tree)."""
 
 import os
 
@@ -15,13 +17,17 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small shapes; leave the cores to the other test workers
 
 from repro.ckpt import restore_checkpoint as jax_restore
+from repro.configs import get_config as jax_get_config
+from repro.models import build as jax_build
 from repro.ckpt import save_checkpoint as jax_save
 from repro.connectors import PosixConnector as JaxPosix
 from repro_torch.ckpt import (CheckpointManager, get_bytes, put_bytes,
                               restore_checkpoint, save_checkpoint)
+from repro_torch.configs import get_config
 from repro_torch.connectors import PosixConnector
 from repro_torch.core.errors import IntegrityError
 from repro_torch.models.convert import flatten, params_from_jax
+from repro_torch.models.registry import build
 
 
 def make_jax_state(seed=0):
@@ -199,3 +205,43 @@ def test_manifest_byte_identical_to_jax(tmp_path):
     for name in ("bundle_0.bin", "params.blocks.wq.bin", "params.w1.bin"):
         assert ((tmp_path / "jax" / "ckpt" / "step_2" / name).read_bytes()
                 == (tmp_path / "port" / "ckpt" / "step_2" / name).read_bytes())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-1.5-large-398b"])
+def test_model_checkpoint_crosses_both_ways(tmp_path, arch):
+    """A bf16 parameter tree of the MoE and hybrid families, saved by each
+    package: byte-identical manifests and digests; the JAX save restores
+    into the port, the port's into JAX, byte for byte, every leaf in its own
+    dtype (the stacked expert weights bf16, the router and mamba's A_log,
+    dt_bias and D fp32)."""
+    jcfg = jax_get_config(arch).scaled_down(param_dtype="bfloat16")
+    jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    jax_save(jparams, JaxPosix(str(tmp_path / "jax")), "ckpt", step=1)
+    save_checkpoint(params, PosixConnector(str(tmp_path / "port")), "ckpt", step=1)
+    manifests = [(tmp_path / side / "ckpt" / "step_1" / "manifest.json").read_bytes()
+                 for side in ("jax", "port")]
+    assert manifests[0] == manifests[1]
+
+    flat = flatten(params)
+    fp32 = {p for p, t in flat.items() if t.dtype == torch.float32}
+    moe = {p for p in flat if "/moe/" in p}
+    assert moe and all(flat[p].dtype == torch.float32 for p in moe if p.endswith("router/w"))
+    assert all(flat[p].dtype == torch.bfloat16 and flat[p].dim() == 4 for p in moe
+               if p.endswith(("/wi", "/wo", "/wg")))  # (blocks, E, ., .)
+    if arch.startswith("jamba"):
+        assert {p.rsplit("/", 1)[1] for p in fp32 if "/mamba/" in p} == {"A_log", "dt_bias", "D"}
+
+    like = build(get_config(arch).scaled_down(param_dtype="bfloat16"), "cpu").init(
+        torch.Generator().manual_seed(1))
+    restored, step = restore_checkpoint(like, PosixConnector(str(tmp_path / "jax")), "ckpt")
+    assert step == 1
+    for path, leaf in flatten(restored).items():
+        _same_bytes(leaf, flat[path])
+
+    abstract = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), jparams)
+    jrestored, step = jax_restore(abstract, JaxPosix(str(tmp_path / "port")), "ckpt")
+    assert step == 1
+    want = flatten(jax.tree.map(np.asarray, jparams))
+    for path, leaf in flatten(jax.tree.map(np.asarray, jrestored)).items():
+        assert leaf.dtype == want[path].dtype and leaf.tobytes() == want[path].tobytes(), path

@@ -1,7 +1,10 @@
 """The port's kernels on the card: the serving paths run the flash kernel
-and the ssm_scan kernel once per layer, rwkv6 training runs the scan kernel
-twice a layer with the plain scan's gradients, the flash kernel's TMA path and its
-mma.sync path and the ssm_scan kernel agree with their plain versions, and the
+and the ssm_scan kernel once per layer (jamba's hybrid stack: the scan once
+per mamba layer, flash once per attention layer), rwkv6 training runs the
+scan kernel twice a layer with the plain scan's gradients, the flash
+kernel's TMA path and its mma.sync path and the ssm_scan kernel agree with
+their plain versions (the scan also on strided q, k and g and on mamba's
+layout, read in place and bit for bit what contiguous copies give), and the
 lanesum32 kernel agrees bit for bit with its plain version.
 
 It needs a CUDA device and skips without one.  It imports no JAX, so it runs
@@ -301,3 +304,116 @@ def test_rwkv_prefill_runs_ssm_kernel_per_layer(cuda):
         assert ssm_kernel.launches == before + cfg.n_layers  # decode is the plain step
         assert fa_kernel.launches == fa_before
     assert torch.isfinite(logits).all()
+
+
+#: B, T, H, K, V: mamba's layout at small sizes, K 18 (rows that cp.async
+#: cannot copy whole), and jamba's head shape (256 heads of K = V = 64)
+MAMBA_CASES = [(2, 40, 3, 8, 8), (1, 33, 4, 18, 12), (2, 70, 256, 64, 64)]
+
+
+def _tols(dtype):
+    """test_ssm_kernel_matches_plain's limits: (y, state)."""
+    return (3e-5 if dtype == "float32" else 2e-2), 3e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MAMBA_CASES, ids=[f"m{i}" for i in range(len(MAMBA_CASES))])
+def test_ssm_kernel_mamba_layout_in_place(cuda, case, dtype):
+    """q and k one (B, T, K) row per (b, t), expanded over the heads (head
+    stride 0), and g one log decay per (b, t, h) of shape (B, T, H, 1): one
+    launch, bit for bit what the kernel gives on contiguous copies of q, k
+    and the expanded g, and within test_ssm_kernel_matches_plain's limits
+    of the plain scalar-decay chunked form."""
+    B, T, H, K, V = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(sum(case))
+    c, b = ((torch.randn((B, T, K), generator=gen, device=cuda) * 0.5).to(dt) for _ in range(2))
+    v = (torch.randn((B, T, H, V), generator=gen, device=cuda) * 0.5).to(dt)
+    g = -torch.exp(torch.randn((B, T, H, 1), generator=gen, device=cuda) - 1.5)
+    s0 = torch.randn((B, H, K, V), generator=gen, device=cuda) * 0.3
+    q, k = c[:, :, None].expand(B, T, H, K), b[:, :, None].expand(B, T, H, K)
+    before = ssm_kernel.launches
+    y, s = ssm_scan(q, k, v, g, None, s0, chunk=16, subchunk=8, scalar_decay=True)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    y_copy, s_copy = ssm_kernel.ssm_scan_fwd(q.contiguous(), k.contiguous(), v,
+                                             g.expand(B, T, H, K).contiguous(), None, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_copy) and torch.equal(s, s_copy)
+    want_y, want_s = ssm_scan_chunked(q, k, v, g, None, s0, chunk=16, subchunk=8,
+                                      scalar_decay=True)
+    tol_y, tol_s = _tols(dtype)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol_y, atol=tol_y)
+    torch.testing.assert_close(s, want_s, rtol=tol_s, atol=tol_s)
+
+
+@pytest.mark.parametrize("extra", [8, 1], ids=["aligned_rows", "unaligned_rows"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_kernel_strided_inputs_in_place(cuda, dtype, extra):
+    """q, k and a per-key g that are slices of wider buffers (row stride
+    K + ``extra``: 16-byte rows, or rows cp.async cannot take): read in
+    place, bit for bit what contiguous copies give, and within
+    test_ssm_kernel_matches_plain's limits of the plain chunked form."""
+    B, T, H, K, V = 2, 45, 3, 16, 8
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(extra)
+    def wide(fn):
+        """fn of a (B, T, H, K + extra) draw, then its first K columns: a view
+        (an elementwise op on a view would return a contiguous tensor)."""
+        return fn(torch.randn((B, T, H, K + extra), generator=gen, device=cuda))[..., :K]
+
+    q, k = (wide(lambda x: (x * 0.5).to(dt)) for _ in range(2))
+    g = wide(lambda x: -torch.exp(x - 1.5))
+    v = (torch.randn((B, T, H, V), generator=gen, device=cuda) * 0.5).to(dt)
+    u = torch.randn((H, K), generator=gen, device=cuda) * 0.5
+    assert not (q.is_contiguous() or g.is_contiguous())
+    before = ssm_kernel.launches
+    y, s = ssm_scan(q, k, v, g, u, None, chunk=16, subchunk=8)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    y_copy, s_copy = ssm_kernel.ssm_scan_fwd(q.contiguous(), k.contiguous(), v, g.contiguous(),
+                                             u, None)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_copy) and torch.equal(s, s_copy)
+    want_y, want_s = ssm_scan_chunked(q, k, v, g, u, None, chunk=16, subchunk=8)
+    tol_y, tol_s = _tols(dtype)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol_y, atol=tol_y)
+    torch.testing.assert_close(s, want_s, rtol=tol_s, atol=tol_s)
+
+
+def test_hybrid_prefill_runs_scan_per_mamba_layer_and_flash_per_attention_layer(cuda):
+    """jamba scaled down (2 blocks of 7 mamba layers and 1 attention layer,
+    MoE every second layer), fp32: a prefill launches the scan once per
+    mamba layer and flash once per attention layer (its fp32 path), a decode
+    step neither, and the logits and caches agree with the same model
+    through the plain attention and the plain scan."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    cfg = get_config("jamba-1.5-large-398b").scaled_down()
+    kinds = [m for m in cfg.block_pattern()] * cfg.n_blocks
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    assert (n_mamba, n_attn) == (14, 2)
+    api = build(cfg, cuda)
+    params = api.init(torch.Generator(api.device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    before, fa_before = ssm_kernel.launches, fa_kernel.f32_launches
+    with torch.inference_mode():
+        logits, cache, _ = api.prefill(params, {"tokens": tokens}, pad_to=97)
+        assert ssm_kernel.launches == before + n_mamba
+        assert fa_kernel.f32_launches == fa_before + n_attn
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        logits_d, _ = api.decode(params, cache, nxt, 96)
+        assert ssm_kernel.launches == before + n_mamba
+        plain = build(dataclasses.replace(cfg, attn_impl="full"), cuda)
+        kernel_scan = ssm_ops.ssm_scan
+        try:
+            ssm_ops.ssm_scan = lambda q, k, v, g, u=None, initial_state=None, *, chunk, subchunk, \
+                scalar_decay, io_dtype, shard_constrain: ssm_scan_chunked(
+                    q, k, v, g, u, initial_state, chunk=chunk, subchunk=subchunk,
+                    scalar_decay=scalar_decay, io_dtype=io_dtype)
+            want, want_cache, _ = plain.prefill(params, {"tokens": tokens}, pad_to=97)
+            want_d, _ = plain.decode(params, want_cache, nxt, 96)
+        finally:
+            ssm_ops.ssm_scan = kernel_scan
+    assert ssm_kernel.launches == before + n_mamba
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(logits_d, want_d, rtol=1e-4, atol=1e-4)

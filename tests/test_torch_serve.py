@@ -1,7 +1,9 @@
 """Whole-model serving parity: the port's prefill and greedy decode against
 ``repro.models`` on the reference's own parameters, for three dense
-scaled-down configs and rwkv6-7b (the ssm family) in fp32."""
+scaled-down configs, rwkv6-7b (the ssm family), the two MoE configs and
+jamba (mamba2 and attention, with MoE) in fp32."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,16 +25,28 @@ from repro_torch.models.registry import build
 from repro_torch.runtime.steps import make_serve_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b"]
+ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b",
+         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 32, 4
 
 
-def _setup(arch, seed):
+def _drop_free(cfg):
+    """``cfg`` with MoE capacity to spare: the full pass then drops no token
+    that the one-token decode would keep (tests/test_arch_smoke.py)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def _setup(arch, seed, drop_free=False):
     jcfg = jax_get_config(arch).scaled_down()
+    cfg = get_config(arch).scaled_down()
+    if drop_free:
+        jcfg, cfg = _drop_free(jcfg), _drop_free(cfg)
     japi = jax_build(jcfg)
     jparams = jax.jit(japi.init)(jax.random.PRNGKey(seed))
-    api = build(get_config(arch).scaled_down(), "cpu")
+    api = build(cfg, "cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     tokens = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     return japi, jparams, api, params, tokens
@@ -71,7 +85,7 @@ def test_prefill_decode_match_jax(arch):
 def test_prefill_decode_consistency(arch):
     """Decode logits after a prefill match a prefill of the extended
     sequence (tests/test_arch_smoke.py::test_prefill_decode_consistency)."""
-    _, _, api, params, tokens = _setup(arch, seed=2)
+    _, _, api, params, tokens = _setup(arch, seed=2, drop_free=True)
     tokens = torch.from_numpy(tokens)
     with torch.inference_mode():
         logits_p, cache, pos = api.prefill(params, {"tokens": tokens}, pad_to=S + 4)
@@ -87,11 +101,13 @@ def test_prefill_decode_consistency(arch):
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "rwkv6-7b", "granite-moe-1b-a400m",
+                                  "jamba-1.5-large-398b"])
 def test_param_tree_layout_matches_jax(arch):
     """Same paths, shapes and dtypes as the reference tree, so weights carry
-    across as a byte copy (bf16 included, and rwkv6's fp32 ``u`` and
-    ``decay_bias`` inside a bf16 tree)."""
+    across as a byte copy (bf16 included, and the fp32 leaves inside a bf16
+    tree: rwkv6's ``u`` and ``decay_bias``, the MoE ``router``, mamba's
+    ``A_log``, ``dt_bias`` and ``D``)."""
     jcfg = jax_get_config(arch).scaled_down(param_dtype="bfloat16")
     jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(0))
     jflat = {"/".join(str(getattr(k, "key", getattr(k, "idx", ""))) for k in path): leaf
@@ -109,9 +125,11 @@ def test_param_tree_layout_matches_jax(arch):
                                       np.asarray(leaf).reshape(-1).view(np.uint8))
 
 
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("dbrx-132b").scaled_down(), "cpu")
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_unported_family_raises(arch):
+    """The encoder-decoder and VLM families are not ported yet (ROADMAP A11)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        build(get_config(arch).scaled_down(), "cpu")
 
 
 def _serve_cli(arch):
@@ -130,3 +148,11 @@ def test_serve_cli_cpu():
 
 def test_serve_cli_cpu_rwkv6():
     _serve_cli("rwkv6-7b")
+
+
+def test_serve_cli_cpu_granite_moe():
+    _serve_cli("granite-moe-1b-a400m")
+
+
+def test_serve_cli_cpu_jamba():
+    _serve_cli("jamba-1.5-large-398b")

@@ -1,7 +1,8 @@
 """Whole-model training parity: the port's loss, gradients and train step
 against ``repro`` on the reference's own parameters, for three dense
-scaled-down configs and rwkv6 (its scan through ``SSMScan``'s plain
-backward) in fp32; then the port's ports of the runtime tests
+scaled-down configs, rwkv6 (its scan through ``SSMScan``'s plain
+backward), the two MoE configs (the load-balance loss in the objective)
+and jamba in fp32; then the port's ports of the runtime tests
 (tests/test_runtime.py): AdamW on a quadratic, the loss going down and a
 restart after preemption."""
 
@@ -30,7 +31,8 @@ from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
 from repro_torch.runtime.steps import make_train_state, make_train_step, value_and_grad
 from repro_torch.runtime.train import TrainLoopConfig, run_training
 
-ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b"]
+ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b",
+         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 S = 128  # two logit chunks and two attention chunks of the scaled-down configs
 #: eps sits well above the fp32 noise of vanishing gradient entries: at step 1
@@ -72,6 +74,8 @@ def test_loss_and_grads_match_jax(arch):
     assert fa_kernel.launches == before  # the CPU path launches no kernel
     _close(loss.numpy(), jloss, "loss")
     _close(metrics["xent"].numpy(), jmetrics["xent"], "xent")
+    _close(metrics["moe_aux"].numpy(), jmetrics["moe_aux"], "moe_aux")
+    assert (float(metrics["moe_aux"]) > 0) == (api.cfg.moe is not None)
     want = flatten(jax.tree.map(np.asarray, jgrads))
     got = flatten(grads)
     assert set(got) == set(want)

@@ -64,7 +64,22 @@
    logits against the same model through plain attention and the plain
    scan, within HYBRID_FP32_LOGIT_LIMIT (a scan fed bf16 inputs must land
    beyond it), and the same greedy first tokens;
-10. trains full-width h2o-danube-3-4b cut to 2 layers through
+10. serves full-width, full-depth whisper-medium (24 encoder and 24 decoder
+   layers, bf16) through ``repro_torch.launch.serve`` (``serve_whisper``):
+   4 and then 16 requests, each 1500 audio frames and a 64-token decoder
+   prompt, to 32 tokens; 48 flash launches per prefill, all on the TMA
+   path (24 non-causal over the frames, 24 causal), the cross-attention
+   plain; a profiled prefill with the encoder's, flash's and
+   cross-attention's shares of the busy time; in fp32 compute the kernel
+   path's greedy first tokens equal to plain attention's and its logits
+   within WHISPER_FP32_LOGIT_LIMIT of them (the kernel fed bf16-rounded q,
+   k, v must land beyond it); bf16 logits as close to an fp32 prefill as
+   the plain bf16 prefill's;
+11. serves full-width, full-depth llava-next-mistral-7b (32 layers, bf16,
+   each prompt beginning with 1152 image positions) as ``serve`` serves
+   h2o-danube-3-4b (``serve_vlm``): 4 x 2048-token prompts to 32 tokens,
+   then 1 x 5120 to 8, 32 flash launches per prefill;
+12. trains full-width h2o-danube-3-4b cut to 2 layers through
    ``repro_torch.launch.train`` (batch 2 x 2048 tokens, bf16 parameters,
    fp32 AdamW moments, a corpus and checkpoints on the POSIX Connector in
    a temporary directory): a run stopped by an injected failure at step 5,
@@ -78,14 +93,14 @@
    destination must equal the digest the card took at save time, the
    mirror must restore onto the card byte for byte, and a byte flipped in
    the mirror must fail its restore (``replication`` in ``train``);
-11. trains full-width rwkv6-7b cut to 2 layers the same way, without
+13. trains full-width rwkv6-7b cut to 2 layers the same way, without
    checkpoints (``train_rwkv``): 2 scan launches per layer and step (the
    forward, then the block remat's recompute; the backward is the plain
    chunked form's), no flash or checksum launch, one step's per-token
    losses and gradients through the kernel in bf16 and fp32 against the
    plain scan's, the warm training rate and a profiled step's device time
    split into the scan kernel, the plain scan backward, AdamW and the rest;
-12. prints one JSON line of per-kernel launches (by path), times and
+14. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -126,6 +141,9 @@ CHECK_CASES = [
     (2, 300, 300, 32, 8, 120, True, 128),
     (1, 333, 333, 8, 2, 128, True, 200),  # lengths ragged against the 128-row tiles
     (2, 130, 333, 4, 1, 64, False, 100),
+    (2, 333, 333, 16, 16, 64, False, None),  # whisper's encoder heads, ragged
+    (1, 1500, 1500, 16, 16, 64, False, None),  # ... at its 1500 frames
+    (2, 300, 300, 32, 8, 128, True, 128),  # llava's heads
 ]
 #: bf16 inputs a TMA tensor map cannot describe, which take the mma.sync
 #: kernel: a head dim of 20 (40-byte rows), and q, k, v whose data start one
@@ -135,7 +153,9 @@ SYNC_CASES = [((2, 200, 200, 4, 2, 20, True, None), 0),
 MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
               (1, 5120, 5120, 32, 8, 120, True, 4096),
               (2, 2048, 2048, 32, 8, 120, True, 4096),  # the training step's
-              (4, 512, 512, 16, 8, 64, True, None)]  # granite-moe's 4 x 512 prefill
+              (4, 512, 512, 16, 8, 64, True, None),  # granite-moe's 4 x 512 prefill
+              (4, 1500, 1500, 16, 16, 64, False, None),  # whisper's encoder at 4 requests
+              (4, 2048, 2048, 32, 8, 128, True, 4096)]  # llava's 4 x 2048 prefill
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.py
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
@@ -236,6 +256,20 @@ HYBRID_WORKLOADS = [(2, 256, 8)]
 #: 1.02e-5 over the prefill and 7 decode steps; the scan fed bf16 q, k, v
 #: (ssm_bf16_io) read 0.048 and must stay above it.
 HYBRID_FP32_LOGIT_LIMIT = 1e-3
+
+WHISPER_ARCH = "whisper-medium"
+#: (requests, decoder prompt tokens, generated tokens), each request with
+#: n_audio_ctx = 1500 audio frames: batched transcription of 30 s windows
+WHISPER_WORKLOADS = [(4, 64, 32), (16, 64, 32)]
+#: whisper-medium fp32 prefill, flash kernel against plain attention:
+#: largest logit difference allowed.  A sound kernel read 5.2e-6 / 6.3e-6 at
+#: 4 / 16 requests on an H100; the kernel fed bf16-rounded q, k, v read
+#: 7.0e-3 / 7.2e-3 and must stay above it.
+WHISPER_FP32_LOGIT_LIMIT = 1e-3
+VLM_ARCH = "llava-next-mistral-7b"
+#: (requests, prompt tokens, generated tokens), each prompt beginning with
+#: n_image_tokens = 1152 image positions: a chat request with one anyres image
+LLAVA_WORKLOADS = [(4, 2048, 32), (1, 5120, 8)]
 
 
 class SmokeFailure(Exception):
@@ -419,21 +453,29 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
     return out
 
 
-def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device):
-    """The serving path: full-width serving through repro_torch.launch.serve."""
+def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device,
+                     arch=ARCH, workloads=WORKLOADS, phase="serve"):
+    """The serving path: full-width serving of ``arch`` through
+    repro_torch.launch.serve (h2o-danube-3-4b in ``serve``, llava with its
+    image positions in ``serve_vlm``).  Returns (rows, flash launches,
+    mma.sync launches)."""
+    from repro_torch.models.convert import flatten
     results, launches = [], 0
-    for B, S, gen_len in WORKLOADS:
-        args = serve.parse_args(["--arch", ARCH, "--no-scaled-down", "--requests", str(B),
+    for B, S, gen_len in workloads:
+        args = serve.parse_args(["--arch", arch, "--no-scaled-down", "--requests", str(B),
                                  "--prompt-len", str(S), "--gen-len", str(gen_len),
                                  "--device", str(device), "--seed", "0"])
-        api, params, tokens = serve.setup(args)
+        api, params, batch = serve.setup(args)
         cfg = api.cfg
-        check(cfg == serve.get_config(ARCH), f"not the full-width config: {cfg}")
-        serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
+        check(cfg == serve.get_config(arch), f"not the full-width config: {cfg}")
+        leaves = flatten(params).values()
+        n_params = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        serve.serve(api, params, batch, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
         reset_flash_counts(fa_kernel)
         cs_kernel.launches = ssm_kernel.launches = 0
-        res = serve.serve(api, params, tokens, gen_len)
+        res = serve.serve(api, params, batch, gen_len)
         n, n_tma, n_sync, n_f32 = flash_counts(fa_kernel)
         launches += n
         check(n == cfg.n_layers, f"{n} kernel launches in one prefill, want {cfg.n_layers}")
@@ -451,7 +493,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
 
         # one profiled prefill: device busy time and the flash kernel's share
         def prefill():
-            return api.prefill(params, {"tokens": tokens})
+            return api.prefill(params, batch)
 
         with torch.inference_mode():
             reset_flash_counts(fa_kernel)
@@ -466,6 +508,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         pre_busy = sum(by_name.values())
         pre_fa = sum(ms for name, ms in by_name.items() if "attn_fwd_bf16_tma" in name)
         check(pre_fa > 0, "the profiled prefill shows no attn_fwd_bf16_tma kernel")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
 
         # the same prefill through plain attention, in bf16 and in fp32
         plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
@@ -473,8 +516,8 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
                       device)
         before = flash_counts(fa_kernel)
         with torch.inference_mode():
-            logits_plain, _, _ = plain.prefill(params, {"tokens": tokens})
-            logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
+            logits_plain, _, _ = plain.prefill(params, batch)
+            logits_exact, _, _ = exact.prefill(params, batch)
         check(flash_counts(fa_kernel) == before,
               f"the plain-attention prefills launched the kernel: (all, TMA, mma.sync, fp32) "
               f"{before} -> {flash_counts(fa_kernel)}")
@@ -483,7 +526,11 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         err_plain = (logits_plain - logits_exact).abs().max().item()
         first, first_plain = logits[:, -1].argmax(-1), logits_plain[:, -1].argmax(-1)
         top2 = logits_plain[:, -1].topk(2, dim=-1).values
-        row = {"requests": B, "prompt_len": S, "gen_len": gen_len,
+        row = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+               "params": n_params, "param_bytes": n_bytes,
+               "image_positions": cfg.vlm.n_image_tokens if cfg.vlm is not None else 0,
+               "requests": B, "prompt_len": S, "gen_len": gen_len,
                "kernel_launches": n, "flash_mma_sync_launches": n_sync + pre_sync,
                "prefill_s": res["prefill_s"],
                "decode_s": res["decode_s"], "prefill_tok_s": res["prefill_tok_s"],
@@ -493,14 +540,15 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
                                    "flash_kernel_ms": pre_fa,
                                    "flash_kernel_share_of_busy": pre_fa / pre_busy,
                                    "flash_tma_launches": pre_tma // 3,
-                                   "flash_mma_sync_launches": pre_sync // 3},
+                                   "flash_mma_sync_launches": pre_sync // 3,
+                                   "top_kernels_ms": {k[:80]: v for k, v in top}},
                "max_abs_logit_diff_vs_plain": diff,
                "max_abs_logit_err_vs_fp32": err,
                "plain_max_abs_logit_err_vs_fp32": err_plain,
                "logit_err_ratio": err / err_plain,
                "min_top2_margin_plain": (top2[:, 0] - top2[:, 1]).min().item(),
                "first_tokens": first.tolist(), "sample_tokens": toks[0, :8].tolist()}
-        emit({"phase": "serve", **row})
+        emit({"phase": phase, **row})
         check(bool((first == first_plain).all()),
               f"greedy first token {first.tolist()} vs plain {first_plain.tolist()}")
         # the kernel path may be no further from the fp32 prefill than the plain
@@ -508,9 +556,10 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         check(err <= LOGIT_SLACK * err_plain,
               f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
         results.append(row)
-        del api, params, tokens, res, logits, logits_plain, logits_exact, plain, exact, prefill
+        del api, params, batch, res, logits, logits_plain, logits_exact, plain, exact, prefill
+        del leaves
         torch.cuda.empty_cache()
-    return results, launches
+    return results, launches, sum(r["flash_mma_sync_launches"] for r in results)
 
 
 def checksum_inputs(torch, device):
@@ -872,15 +921,15 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         args = serve.parse_args(["--arch", RWKV_ARCH, "--no-scaled-down", "--requests", str(B),
                                  "--prompt-len", str(S), "--gen-len", str(gen_len),
                                  "--device", str(device), "--seed", "0"])
-        api, params, tokens = serve.setup(args)
+        api, params, batch = serve.setup(args)
         cfg = api.cfg
         check(cfg == serve.get_config(RWKV_ARCH), f"not the full-width config: {cfg}")
         n_params = sum(t.numel() for t in flatten(params).values())
-        serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
+        serve.serve(api, params, batch, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
         reset_flash_counts(fa_kernel)
         cs_kernel.launches = ssm_kernel.launches = 0
-        res = serve.serve(api, params, tokens, gen_len)
+        res = serve.serve(api, params, batch, gen_len)
         n = ssm_kernel.launches
         launches += n
         fa_counts = flash_counts(fa_kernel)
@@ -901,7 +950,7 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         step = make_serve_step(api)
 
         def prefill():
-            return api.prefill(params, {"tokens": tokens})
+            return api.prefill(params, batch)
 
         with torch.inference_mode():
             ssm_kernel.launches = 0
@@ -931,14 +980,14 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
                         device)
         ssm_kernel.launches = 0
         with torch.inference_mode():
-            logits_exact_kernel, _, _ = exact.prefill(params, {"tokens": tokens})
-            logits_bf16_io, _, _ = bf16_io.prefill(params, {"tokens": tokens})
+            logits_exact_kernel, _, _ = exact.prefill(params, batch)
+            logits_bf16_io, _, _ = bf16_io.prefill(params, batch)
         check(ssm_kernel.launches == 2 * cfg.n_layers,
               f"{ssm_kernel.launches} scan launches in two fp32 prefills")
         ssm_kernel.launches = 0
         with plain_scan(ssm_ops, ssm_ref), torch.inference_mode():
-            logits_plain, _, _ = api.prefill(params, {"tokens": tokens})
-            logits_exact, _, _ = exact.prefill(params, {"tokens": tokens})
+            logits_plain, _, _ = api.prefill(params, batch)
+            logits_exact, _, _ = exact.prefill(params, batch)
         check(ssm_kernel.launches == 0, "the plain-scan prefill launched the kernel")
         diff = (logits - logits_plain).abs().max().item()
         err = (logits - logits_exact).abs().max().item()
@@ -992,7 +1041,7 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         check(err <= LOGIT_SLACK * err_plain,
               f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
         results.append(row)
-        del api, params, tokens, res, logits, logits_plain, logits_exact, exact, bf16_io
+        del api, params, batch, res, logits, logits_plain, logits_exact, exact, bf16_io
         del logits_exact_kernel, logits_bf16_io
         torch.cuda.empty_cache()
     return results, launches
@@ -1059,17 +1108,17 @@ def serve_moe(torch, serve, build, kernels, device):
         args = serve.parse_args(["--arch", MOE_ARCH, "--no-scaled-down", "--requests", str(B),
                                  "--prompt-len", str(S), "--gen-len", str(gen_len),
                                  "--device", str(device), "--seed", "0"])
-        api, params, tokens = serve.setup(args)
+        api, params, batch = serve.setup(args)
         cfg = api.cfg
         check(cfg == serve.get_config(MOE_ARCH), f"not the full-width config: {cfg}")
         leaves = flatten(params).values()
         n_params = sum(t.numel() for t in leaves)
         n_bytes = sum(t.numel() * t.element_size() for t in leaves)
-        serve.serve(api, params, tokens, 2)  # warm-up: first-call set-up is not timed
+        serve.serve(api, params, batch, 2)  # warm-up: first-call set-up is not timed
         torch.cuda.reset_peak_memory_stats(device)
         reset_flash_counts(fa_kernel)
         cs_kernel.launches = ssm_kernel.launches = 0
-        res = serve.serve(api, params, tokens, gen_len)
+        res = serve.serve(api, params, batch, gen_len)
         n, n_tma, n_sync, n_f32 = flash_counts(fa_kernel)
         launches, sync = launches + n, sync + n_sync
         check(n == cfg.n_layers, f"{n} flash launches in one prefill, want {cfg.n_layers}")
@@ -1086,7 +1135,7 @@ def serve_moe(torch, serve, build, kernels, device):
         peak_mem = torch.cuda.max_memory_allocated(device)
 
         def prefill():
-            return api.prefill(params, {"tokens": tokens})
+            return api.prefill(params, batch)
 
         with torch.inference_mode():
             reset_flash_counts(fa_kernel)
@@ -1108,7 +1157,6 @@ def serve_moe(torch, serve, build, kernels, device):
         exact_plain = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"),
                             device)
         before = flash_counts(fa_kernel)
-        batch = {"tokens": tokens}
         with torch.inference_mode():
             with routing_recorder(tf, moe) as r_k:
                 lg_k, _, _ = api.prefill(params, batch)
@@ -1172,7 +1220,7 @@ def serve_moe(torch, serve, build, kernels, device):
               f"the bf16-input kernel's fp32 logits are {diff_bf16_in} from plain attention's, "
               f"within the limit {MOE_FP32_LOGIT_LIMIT}: the limit tells nothing apart")
         results.append(row)
-        del api, params, tokens, res, logits, plain, exact, exact_plain, lg_k, lg_p, lg32_k
+        del api, params, batch, res, logits, plain, exact, exact_plain, lg_k, lg_p, lg32_k
         del lg32_p, lg32_bf16_in, r_k, r_p, r32_k, r32_p
         torch.cuda.empty_cache()
     return results, launches, sync
@@ -1371,15 +1419,15 @@ def serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         args = serve.parse_args(["--arch", HYBRID_ARCH, "--requests", str(B), "--prompt-len",
                                  str(S), "--gen-len", str(gen_len), "--device", str(device),
                                  "--seed", "0"])
-        api, params, tokens = serve.setup(args)
+        api, params, batch = serve.setup(args)
         cfg = api.cfg
         check(cfg == serve.get_config(HYBRID_ARCH).scaled_down(), f"not scaled down: {cfg}")
         kinds = cfg.block_pattern() * cfg.n_blocks
         n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
-        serve.serve(api, params, tokens, 2)  # warm-up
+        serve.serve(api, params, batch, 2)  # warm-up
         reset_flash_counts(fa_kernel)
         cs_kernel.launches = ssm_kernel.launches = 0
-        res = serve.serve(api, params, tokens, gen_len)
+        res = serve.serve(api, params, batch, gen_len)
         fa = flash_counts(fa_kernel)
         launches["scan"] += ssm_kernel.launches
         launches["flash"] += fa[0]
@@ -1394,7 +1442,7 @@ def serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
 
         def run(model):
             """Prefill logits, then each decode step's on the served tokens."""
-            lg, cache, _ = model.prefill(params, {"tokens": tokens}, pad_to=S + gen_len)
+            lg, cache, _ = model.prefill(params, batch, pad_to=S + gen_len)
             out, step = [lg], make_serve_step(model, greedy=False)
             for i in range(gen_len - 1):
                 lg, cache = step(params, cache, toks[:, i:i + 1], S + i)
@@ -1435,9 +1483,181 @@ def serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
               f"the bf16-input scan's logits are {diff_b} from the plain path's, within the "
               f"limit {HYBRID_FP32_LOGIT_LIMIT}: the limit tells nothing apart")
         results.append(row)
-        del api, params, tokens, res, plain, bf16_io, lg_k, lg_b, lg_p
+        del api, params, batch, res, plain, bf16_io, lg_k, lg_b, lg_p
         torch.cuda.empty_cache()
     return results, launches
+
+
+@contextlib.contextmanager
+def flash_calls(fa_kernel):
+    """Records (causal, Sq, Skv) of every flash kernel call in the block; the
+    calls still run the kernel and count as launches."""
+    calls = []
+
+    def fwd(q, k, v, *, causal, window):
+        calls.append((causal, q.shape[1], k.shape[1]))
+        return kernel_fwd(q, k, v, causal=causal, window=window)
+
+    kernel_fwd, fa_kernel.flash_attention_fwd = fa_kernel.flash_attention_fwd, fwd
+    try:
+        yield calls
+    finally:
+        fa_kernel.flash_attention_fwd = kernel_fwd
+
+
+def serve_whisper(torch, serve, build, kernels, device):
+    """The encoder-decoder serving path: full-width, full-depth whisper-medium
+    through repro_torch.launch.serve, each request 1500 audio frames and a
+    decoder prompt; the encoder's non-causal self-attention and the decoder's
+    causal self-attention on the flash kernel (TMA path), the cross-attention
+    plain (the reference's own choice).  One profiled prefill with the
+    ``encoder`` and ``cross_attention`` ranges.  Then the same prefill in
+    fp32 compute (the same bf16 weights) through the kernel (flash's fp32
+    path), through plain attention, and through the kernel fed bf16-rounded
+    q, k, v; and the bf16 prefill through plain attention.
+
+    In fp32 the kernel path must give the plain path's greedy first token on
+    every request and logits within WHISPER_FP32_LOGIT_LIMIT of it, and the
+    bf16-input kernel must land beyond that limit; in bf16 the logit error
+    against the fp32 plain prefill may be LOGIT_SLACK times the plain bf16
+    prefill's.  Returns (rows, flash launches, mma.sync launches)."""
+    from repro_torch.models import layers
+    from repro_torch.models.convert import flatten
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    results, launches, sync = [], 0, 0
+    for B, S, gen_len in WHISPER_WORKLOADS:
+        args = serve.parse_args(["--arch", WHISPER_ARCH, "--no-scaled-down", "--requests",
+                                 str(B), "--prompt-len", str(S), "--gen-len", str(gen_len),
+                                 "--device", str(device), "--seed", "0"])
+        api, params, batch = serve.setup(args)
+        cfg = api.cfg
+        check(cfg == serve.get_config(WHISPER_ARCH), f"not the full-width config: {cfg}")
+        n_enc, frames = cfg.encdec.n_encoder_layers, cfg.encdec.n_audio_ctx
+        per_prefill = n_enc + cfg.n_layers
+        check(tuple(batch["audio_embeds"].shape) == (B, frames, cfg.d_model),
+              f"audio embeddings {tuple(batch['audio_embeds'].shape)}")
+        leaves = flatten(params).values()
+        n_params = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        serve.serve(api, params, batch, 2)  # warm-up: first-call set-up is not timed
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        with flash_calls(fa_kernel) as calls:
+            res = serve.serve(api, params, batch, gen_len)
+        n, n_tma, n_sync, n_f32 = flash_counts(fa_kernel)
+        launches, sync = launches + n, sync + n_sync
+        non_causal = sum(1 for c, sq, skv in calls if not c and sq == skv == frames)
+        causal = sum(1 for c, sq, skv in calls if c and sq == skv == S)
+        check(n == per_prefill and n_tma == n,
+              f"{n} flash launches in a prefill and {gen_len - 1} decode steps, {n_tma} TMA, "
+              f"{n_sync} mma.sync, {n_f32} fp32; want {per_prefill} on the TMA path")
+        check(non_causal == n_enc and causal == cfg.n_layers,
+              f"flash calls (causal, Sq, Skv): {calls}; want {n_enc} non-causal over "
+              f"{frames} frames and {cfg.n_layers} causal over {S} tokens")
+        check(cs_kernel.launches == 0 and ssm_kernel.launches == 0,
+              f"whisper serving launched checksum {cs_kernel.launches} / scan "
+              f"{ssm_kernel.launches} times")
+        logits, toks = res["logits"], res["tokens"]
+        check(tuple(logits.shape) == (B, 1, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size, f"generated tokens {tuple(toks.shape)}")
+        peak_mem = torch.cuda.max_memory_allocated(device)
+
+        def prefill():
+            return api.prefill(params, batch)
+
+        spans = ("encoder", "cross_attention")
+        with torch.inference_mode():
+            reset_flash_counts(fa_kernel)
+            pre_wall = statistics.median(wall_ms(torch, prefill, 3))
+            pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
+            by_name, pre_n, span_ms, _, busy_in = profile_device(
+                torch, prefill, spans=spans, complete=lambda counts: sum(
+                    c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == per_prefill)
+        check(pre_all == pre_tma == 3 * per_prefill and pre_sync == 0,
+              f"3 prefills: {pre_all} launches, {pre_tma} TMA and {pre_sync} mma.sync")
+        sync += pre_sync
+        pre_busy = sum(by_name.values())
+        pre_fa = sum(ms for name, ms in by_name.items() if "attn_fwd_bf16_tma" in name)
+        check(pre_fa > 0 and all(busy_in[r] > 0 for r in spans),
+              f"the profiled prefill: flash {pre_fa} ms, in the ranges {busy_in}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+        plain = build(dataclasses.replace(cfg, attn_impl="full"), device)
+        exact = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+        exact_plain = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"),
+                            device)
+        before = flash_counts(fa_kernel)
+        with torch.inference_mode():
+            lg_p, _, _ = plain.prefill(params, batch)
+            lg32_k, _, _ = exact.prefill(params, batch)
+            lg32_p, _, _ = exact_plain.prefill(params, batch)
+            with bf16_attention_inputs(layers):
+                lg32_bf16_in, _, _ = exact.prefill(params, batch)
+        took = tuple(a - b for a, b in zip(flash_counts(fa_kernel), before))
+        check(took == (2 * per_prefill, 0, 0, 2 * per_prefill),
+              f"flash launches (all, TMA, mma.sync, fp32) {took} in two fp32 kernel prefills "
+              "and two plain ones")
+        diff32 = (lg32_k - lg32_p).abs().max().item()
+        diff_bf16_in = (lg32_bf16_in - lg32_p).abs().max().item()
+        err = (logits - lg32_p).abs().max().item()
+        err_plain = (lg_p - lg32_p).abs().max().item()
+        first32, first32_plain = lg32_k[:, -1].argmax(-1), lg32_p[:, -1].argmax(-1)
+        top2_32 = lg32_p[:, -1].topk(2, dim=-1).values
+        row = {"arch": WHISPER_ARCH, "encoder_layers": n_enc, "decoder_layers": cfg.n_layers,
+               "d_model": cfg.d_model, "n_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+               "param_bytes": n_bytes, "requests": B, "audio_frames": frames,
+               "prompt_len": S, "gen_len": gen_len, "kernel_launches": n,
+               "flash_noncausal_launches": non_causal, "flash_causal_launches": causal,
+               "flash_mma_sync_launches": n_sync + pre_sync,
+               "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "prefill_tok_s": res["prefill_tok_s"],
+               "prefill_audio_frames_s": B * frames / res["prefill_s"],
+               "decode_tok_s": res["decode_tok_s"], "max_memory_allocated": peak_mem,
+               "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
+                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   "flash_kernel_ms": pre_fa,
+                                   "flash_kernel_share_of_busy": pre_fa / pre_busy,
+                                   "flash_tma_launches": pre_tma // 3,
+                                   "encoder_busy_ms": busy_in["encoder"],
+                                   "encoder_share_of_busy": busy_in["encoder"] / pre_busy,
+                                   "cross_attention_busy_ms": busy_in["cross_attention"],
+                                   "cross_attention_share_of_busy":
+                                       busy_in["cross_attention"] / pre_busy,
+                                   "range_extent_ms": span_ms,
+                                   "top_kernels_ms": {k[:80]: v for k, v in top}},
+               "fp32_max_abs_logit_diff_kernel_vs_plain": diff32,
+               "fp32_logit_limit": WHISPER_FP32_LOGIT_LIMIT,
+               "fp32_share_of_limit": diff32 / WHISPER_FP32_LOGIT_LIMIT,
+               "fp32_bf16_inputs_max_abs_logit_diff_vs_plain": diff_bf16_in,
+               "fp32_first_tokens": first32.tolist(),
+               "fp32_first_tokens_plain": first32_plain.tolist(),
+               "fp32_top2_margin_plain": (top2_32[:, 0] - top2_32[:, 1]).tolist(),
+               "max_abs_logit_err_vs_fp32": err,
+               "plain_max_abs_logit_err_vs_fp32": err_plain,
+               "logit_err_ratio": err / err_plain,
+               "bf16_first_tokens": logits[:, -1].argmax(-1).tolist(),
+               "bf16_first_tokens_plain": lg_p[:, -1].argmax(-1).tolist(),
+               "sample_tokens": toks[0, :8].tolist()}
+        emit({"phase": "serve_whisper", **row})
+        check(bool(torch.isfinite(lg32_k).all()), "non-finite fp32 logits")
+        check(bool((first32 == first32_plain).all()),
+              f"fp32 greedy first tokens {first32.tolist()}, plain {first32_plain.tolist()}")
+        check(diff32 <= WHISPER_FP32_LOGIT_LIMIT,
+              f"fp32 logits {diff32} from plain attention's, limit {WHISPER_FP32_LOGIT_LIMIT}")
+        check(diff_bf16_in > WHISPER_FP32_LOGIT_LIMIT,
+              f"the bf16-input kernel's fp32 logits are {diff_bf16_in} from plain attention's, "
+              f"within the limit {WHISPER_FP32_LOGIT_LIMIT}: the limit tells nothing apart")
+        check(err <= LOGIT_SLACK * err_plain,
+              f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
+        results.append(row)
+        del api, params, batch, res, logits, plain, exact, exact_plain, lg_p, lg32_k, lg32_p
+        del lg32_bf16_in, leaves, prefill
+        torch.cuda.empty_cache()
+    return results, launches, sync
 
 
 def rel_l2(a, b):
@@ -2071,14 +2291,18 @@ def main() -> int:
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
-        serve_rows, serve_fa = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
-                                                ssm_kernel, device)
+        _, serve_fa, serve_sync = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
+                                                   ssm_kernel, device)
         rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
         _, moe_fa, moe_sync = serve_moe(torch, serve, build, kernels, device)
         _, mamba_times, mamba_ssm, mamba_worst = mamba_layer(torch, kernels, ssm_ops, ssm_ref,
                                                              device)
         ssm_worst = max(ssm_worst, mamba_worst)
         _, hybrid = serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
+        _, whisper_fa, whisper_sync = serve_whisper(torch, serve, build, kernels, device)
+        _, vlm_fa, vlm_sync = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
+                                               ssm_kernel, device, arch=VLM_ARCH,
+                                               workloads=LLAVA_WORKLOADS, phase="serve_vlm")
         train_fa, train_cs, mirror_cs, train_sync = train_full_width(
             torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device)
         torch.cuda.empty_cache()
@@ -2088,16 +2312,19 @@ def main() -> int:
         emit({"ok": False, "error": str(exc)})
         return 1
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    sync_by_run = {"serve": sum(r["flash_mma_sync_launches"] for r in serve_rows),
+    sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
-                   "serve_moe": moe_sync, **train_sync, "train_rwkv": rwkv_train_sync}
+                   "serve_moe": moe_sync, "serve_whisper": whisper_sync, "serve_vlm": vlm_sync,
+                   **train_sync, "train_rwkv": rwkv_train_sync}
     fa_by_path = {"serve": serve_fa, "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
-                  "serve_hybrid": hybrid["flash"], "train": train_fa, "train_rwkv": 0}
+                  "serve_hybrid": hybrid["flash"], "serve_whisper": whisper_fa,
+                  "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0}
     cs_by_path = {"serve": 0, "serve_rwkv": 0, "serve_moe": 0, "mamba_layer": 0,
-                  "serve_hybrid": 0, "train": train_cs, "train_mirror_restore": mirror_cs,
-                  "train_rwkv": 0}
+                  "serve_hybrid": 0, "serve_whisper": 0, "serve_vlm": 0, "train": train_cs,
+                  "train_mirror_restore": mirror_cs, "train_rwkv": 0}
     ssm_by_path = {"serve": 0, "serve_rwkv": rwkv_ssm, "serve_moe": 0, "mamba_layer": mamba_ssm,
-                   "serve_hybrid": hybrid["scan"], "train": 0, "train_rwkv": rwkv_train_ssm}
+                   "serve_hybrid": hybrid["scan"], "serve_whisper": 0, "serve_vlm": 0,
+                   "train": 0, "train_rwkv": rwkv_train_ssm}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -64,15 +64,15 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve
     from repro_torch.runtime.steps import make_serve_step
 
-    api, params, tokens = serve.setup(serve.parse_args(
+    api, params, batch = serve.setup(serve.parse_args(
         ["--arch", args.arch, "--no-scaled-down", "--requests", str(args.requests),
          "--prompt-len", str(args.prompt_len), "--seed", str(args.seed)]))
-    serve.serve(api, params, tokens, 2)  # warm-up
-    S = tokens.shape[1]
+    serve.serve(api, params, batch, 2)  # warm-up
+    S = batch["tokens"].shape[1]
     step = make_serve_step(api)
 
     def prefill():
-        logits, cache, _ = api.prefill(params, {"tokens": tokens}, pad_to=S + args.steps)
+        logits, cache, _ = api.prefill(params, batch, pad_to=S + args.steps)
         return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
 
     def decode(tok, cache):

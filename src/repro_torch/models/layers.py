@@ -123,23 +123,26 @@ def full_attention(q, k, v, *, causal, window=None, q_offset=0,
 
 
 def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
-                    use_rope=True):
-    """Full-sequence (prefill) self-attention; returns (out, (k, v)).
-    ``cfg.attn_impl == "full"`` takes the plain full-matrix path, as in
-    the reference; any other value takes ``flash_attention_auto``.
+                    x_kv=None, use_rope=True):
+    """Full-sequence (prefill) attention; returns (out, (k, v)).
+    Self-attention (``x_kv`` None) takes the plain full-matrix path when
+    ``cfg.attn_impl == "full"``, as in the reference, and
+    ``flash_attention_auto`` for any other value.  Cross-attention (keys and
+    values from ``x_kv``) has no RoPE and always takes ``full_attention``,
+    as the reference's ``layers.py:205`` does.
     ``cfg.attn_shard_constraints`` raises: the port has no sharding yet."""
     if cfg.attn_shard_constraints:
         raise NotImplementedError(
             "attention_apply: attn_shard_constraints needs the port's sharding "
             "rules, ROADMAP A12 (distribution)")
     B, S = x.shape[:2]
-    q, k, v = _qkv(p, x, None, cfg)
+    q, k, v = _qkv(p, x, x_kv, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    if use_rope:
+    if use_rope and x_kv is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "full":
+    if cfg.attn_impl == "full" or x_kv is not None:
         out = full_attention(q, k, v, causal=causal, window=cfg.swa_window)
     else:
         out = flash_attention_auto(q, k, v, causal=causal,
@@ -149,36 +152,43 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
-                     use_rope=True):
+                     use_rope=True, cross_kv=None):
     """One-token decode against a fixed-size KV cache.
 
     x: (B, 1, d); cache_k/v: (B, S_max, KV, dh); pos: int.  The new k/v
     are written into the caches in place at ``pos`` (the reference returns
-    updated copies from ``dynamic_update_slice``).  Returns
-    (out, cache_k, cache_v).
+    updated copies from ``dynamic_update_slice``).  With ``cross_kv`` =
+    (k, v), the encoder's (B, S_enc, KV, dh), the token attends to every
+    one of those positions, without RoPE, and no cache is written.
+    Returns (out, cache_k, cache_v).
     """
     B = x.shape[0]
     dh = cfg.head_dim
     q = linear(p["wq"], x).reshape(B, 1, cfg.n_heads, dh)
-    k_new = linear(p["wk"], x).reshape(B, 1, cfg.n_kv_heads, dh)
-    v_new = linear(p["wv"], x).reshape(B, 1, cfg.n_kv_heads, dh)
-    if use_rope:
-        pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, pos_arr, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
-    kv_pos = torch.arange(cache_k.shape[1], device=x.device)
-    mask_pos = kv_pos <= pos
-    if cfg.swa_window is not None:
-        mask_pos &= kv_pos > pos - cfg.swa_window
-    KV = cache_k.shape[2]
+    if cross_kv is not None:
+        k, v = cross_kv
+        mask_pos = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+    else:
+        k_new = linear(p["wk"], x).reshape(B, 1, cfg.n_kv_heads, dh)
+        v_new = linear(p["wv"], x).reshape(B, 1, cfg.n_kv_heads, dh)
+        if use_rope:
+            pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+            q = apply_rope(q, pos_arr, cfg.rope_theta)
+            k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        k, v = cache_k, cache_v
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+        mask_pos = kv_pos <= pos
+        if cfg.swa_window is not None:
+            mask_pos &= kv_pos > pos - cfg.swa_window
+    KV = k.shape[2]
     qg = q.reshape(B, KV, cfg.n_heads // KV, dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float()
     s = s * (1.0 / math.sqrt(dh))
     s = torch.where(mask_pos[None, None, None, :], s, -1e30)
     p_attn = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", p_attn, cache_v)
+    out = torch.einsum("bkgs,bskd->bkgd", p_attn, v)
     out = out.reshape(B, 1, cfg.n_heads * dh)
     return linear(p["wo"], out), cache_k, cache_v
 

@@ -1,9 +1,11 @@
 """Public model API of the port, after ``repro/models/registry.py``.
 
 ``build(cfg, device)`` returns a ``ModelApi`` whose functions run on
-``device`` (default ``cuda``).  The port builds the dense, MoE, hybrid
-(jamba: mamba2 and attention, with MoE) and ``ssm`` (rwkv6) families; the
-encoder-decoder and VLM families raise and name their ROADMAP item.
+``device`` (default ``cuda``), for every family of the reference: dense,
+MoE, hybrid (jamba: mamba2 and attention, with MoE), ``ssm`` (rwkv6),
+``audio`` (whisper: an encoder and cross-attention; its batches carry
+``audio_embeds``) and ``vlm`` (llava: its prefill batches carry
+``image_embeds``).
 """
 
 from __future__ import annotations
@@ -15,13 +17,6 @@ import torch
 
 from . import transformer as tf
 from .common import ArchConfig
-
-#: families still to port, with the ROADMAP.md item that ports each
-PENDING_FAMILIES = {
-    "audio": "ROADMAP A11 (encoder-decoder and VLM)",
-    "vlm": "ROADMAP A11 (encoder-decoder and VLM)",
-}
-
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; ``cuda`` without a card raises."""
@@ -44,15 +39,12 @@ class ModelApi:
     prefill: Callable       # (params, batch, pad_to) -> (logits, cache, pos)
     decode: Callable        # (params, cache, token, pos) -> (logits, cache)
 
-    def make_cache(self, batch: int, max_seq: int):
-        return tf.make_decode_cache(self.cfg, batch, max_seq, self.device)
+    def make_cache(self, batch: int, max_seq: int, enc_len: int | None = None):
+        return tf.make_decode_cache(self.cfg, batch, max_seq, self.device,
+                                    enc_len=enc_len)
 
 
 def build(cfg: ArchConfig, device="cuda") -> ModelApi:
-    if cfg.family in PENDING_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet; "
-            f"see {PENDING_FAMILIES[cfg.family]}")
     dev = resolve_device(device)
 
     def init(gen: torch.Generator):

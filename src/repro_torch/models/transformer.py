@@ -1,12 +1,15 @@
-"""Decoder stack, ported from ``repro/models/transformer.py``.
+"""Model stack, ported from ``repro/models/transformer.py``.
 
 A model is a stack of blocks, each a list of (mixer, ffn) layers as the
 reference's ``_layer_kinds`` gives them: the mixer attention, the mamba2
 mixer (jamba) or the rwkv6 time mix; the ffn a dense MLP, MoE or the rwkv
-channel mix.  Cross-attention (whisper) raises in ``_layer_kinds`` and
-names its ROADMAP item (``registry.build`` refuses that family, and VLMs,
-first).  Blocks are stacked on a leading axis as in the reference, and the
-reference's ``lax.scan`` over blocks is a Python loop over that axis.
+channel mix.  An encoder-decoder (whisper) adds an encoder stack of the
+same blocks, run non-causally over ``batch["audio_embeds"]``, and a
+cross-attention branch in every decoder layer; a VLM (llava) puts the
+projected ``batch["image_embeds"]`` in place of the first token
+embeddings.  Blocks are stacked on a leading axis as in the reference,
+and the reference's ``lax.scan`` over blocks is a Python loop over that
+axis.
 ``remat="block"`` (the reference's ``jax.checkpoint`` in ``_scan_blocks``)
 is ``torch.utils.checkpoint`` around each block while autograd records;
 the backward then runs each block's forward once more.  The decode caches
@@ -21,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ssm_scan import ops as ssm_ops
@@ -30,10 +34,6 @@ from .layers import (_normal, attention_apply, attention_decode,
                      mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
 from .moe import moe_apply, moe_init
 from .ssm import ssm_decode_step
-
-#: layer kinds still to port, with the ROADMAP.md item that ports each
-PENDING_KINDS = {"cross-attention": "ROADMAP A11 (encoder-decoder and VLM)"}
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -280,23 +280,19 @@ def cmix_apply(p, x, cfg: ArchConfig, state=None):
 # ===========================================================================
 def _layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
     """[(mixer, ffn)] per layer inside one block: mixer "attn", "mamba" or
-    "rwkv"; ffn "dense", "moe" or "cmix".  Cross-attention raises here,
-    naming its ROADMAP item, so the functions below see only ported kinds."""
+    "rwkv"; ffn "dense", "moe" or "cmix"."""
     out = []
     for i, mixer in enumerate(cfg.block_pattern()):
         if mixer == "rwkv":
             out.append(("rwkv", "cmix"))
         else:
             out.append((mixer, cfg.ffn_kind(i)))
-    pending = [k for k in ("cross-attention",) if cfg.is_encdec] + \
-        [k for kinds in out for k in kinds if k in PENDING_KINDS]
-    if pending:
-        raise NotImplementedError(f"{cfg.arch_id}: {pending[0]} layers are not ported "
-                                  f"yet; see {PENDING_KINDS[pending[0]]}")
     return out
 
 
-def block_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+def block_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross_attention=False):
+    """One block's layers; with ``cross_attention`` each layer also has
+    ``norm_x`` and ``xattn`` (the encoder-decoder's decoder blocks)."""
     layers = []
     for mixer, ffn in _layer_kinds(cfg):
         layer = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
@@ -306,17 +302,23 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, dtype):
         name, init = {"dense": ("mlp", mlp_init), "moe": ("moe", moe_init),
                       "cmix": ("cmix", cmix_init)}[ffn]
         layer[name] = init(gen, cfg, dtype)
+        if cross_attention:
+            layer["norm_x"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+            layer["xattn"] = attention_init(gen, cfg, dtype)
         layers.append(layer)
     return {"layers": layers}
 
 
-def block_apply(bp, x, cfg: ArchConfig, *, causal=True, collect_cache=False):
+def block_apply(bp, x, cfg: ArchConfig, *, causal=True, enc_out=None, collect_cache=False):
     """Full-sequence pass through one block.  Returns (x, cache, aux): the
     cache holds only the kinds this block has, aux is the sum of its MoE
-    layers' load-balance losses (fp32, 0 without MoE)."""
+    layers' load-balance losses (fp32, 0 without MoE).  With ``enc_out``
+    (B, S_enc, d), each layer cross-attends to it between its mixer and its
+    ffn (under the profiler range ``cross_attention``), and the cache gains
+    that branch's ``cross_k`` / ``cross_v``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {"attn_k": [], "attn_v": [], "ssm": [], "conv": [], "shift_t": [],
-             "shift_c": []}
+             "shift_c": [], "cross_k": [], "cross_v": []}
     for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
         if mixer == "attn":
@@ -329,6 +331,12 @@ def block_apply(bp, x, cfg: ArchConfig, *, causal=True, collect_cache=False):
             out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
             kept = {"ssm": s_ssm, "shift_t": last}
         x = x + out
+        if enc_out is not None:
+            with record_function("cross_attention"):
+                h = rmsnorm(layer["norm_x"], x, cfg.norm_eps)
+                out, (kept["cross_k"], kept["cross_v"]) = attention_apply(
+                    layer["xattn"], h, cfg, causal=False, x_kv=enc_out)
+                x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             out = mlp_apply(layer["mlp"], h, cfg)
@@ -349,8 +357,10 @@ def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
     ((n_attn, B, S_max, KV, dh) KV caches; (n_mamba or n_rwkv, B, ...)
     recurrent states) and is updated in place.  Each kind of state has its
     own counter, advanced where the state is read: a mamba layer has no
-    channel mix, so its ``ssm`` counter advances in the mixer branch."""
-    n = {"attn": 0, "ssm": 0, "shift_c": 0}
+    channel mix, so its ``ssm`` counter advances in the mixer branch.  The
+    cross-attention caches (``cross_k`` / ``cross_v``, the encoder's keys and
+    values from the prefill) are read, never written."""
+    n = {"attn": 0, "ssm": 0, "shift_c": 0, "cross": 0}
     for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
         if mixer == "attn":
@@ -373,6 +383,13 @@ def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
             cache["shift_t"][j].copy_(last)
             n["ssm"] += 1
         x = x + out
+        if "xattn" in layer:
+            j = n["cross"]
+            h = rmsnorm(layer["norm_x"], x, cfg.norm_eps)
+            out, _, _ = attention_decode(layer["xattn"], h, None, None, pos, cfg,
+                                         cross_kv=(cache["cross_k"][j], cache["cross_v"][j]))
+            n["cross"] += 1
+            x = x + out
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             out = mlp_apply(layer["mlp"], h, cfg)
@@ -391,7 +408,9 @@ def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
 # full model
 # ===========================================================================
 def init_params(gen: torch.Generator, cfg: ArchConfig):
-    """Random parameters on ``gen.device``, in ``cfg.param_dtype``."""
+    """Random parameters on ``gen.device``, in ``cfg.param_dtype``: an
+    encoder-decoder adds ``enc_blocks`` (``n_encoder_layers`` blocks without
+    cross-attention, stacked) and ``enc_norm``, a VLM ``vision_proj``."""
     dtype = _dtype(cfg.param_dtype)
     scale = 1.0 / math.sqrt(cfg.d_model)
     params = {
@@ -399,39 +418,77 @@ def init_params(gen: torch.Generator, cfg: ArchConfig):
                                    dtype, scale)},
         "final_norm": rmsnorm_init(cfg.d_model, dtype, gen.device),
     }
-    blocks = [block_init(gen, cfg, dtype) for _ in range(cfg.n_blocks)]
+    blocks = [block_init(gen, cfg, dtype, cross_attention=cfg.is_encdec)
+              for _ in range(cfg.n_blocks)]
     params["blocks"] = _tree_map(lambda *xs: torch.stack(xs), *blocks)
     del blocks
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                         dtype, scale=scale)
+    if cfg.is_encdec:
+        enc = [block_init(gen, cfg, dtype) for _ in range(cfg.encdec.n_encoder_layers)]
+        params["enc_blocks"] = _tree_map(lambda *xs: torch.stack(xs), *enc)
+        del enc
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+    if cfg.vlm is not None:
+        params["vision_proj"] = linear_init(gen, cfg.vlm.patch_dim, cfg.d_model, dtype)
     return params
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    return params["embed"]["table"][tokens].to(_dtype(cfg.compute_dtype))
+def _embed(params, tokens, cfg: ArchConfig, batch=None):
+    """Token embeddings in ``cfg.compute_dtype``; for a VLM with
+    ``batch["image_embeds"]`` (B, n_image, patch_dim), the first n_image
+    positions are the projected image embeddings instead."""
+    x = params["embed"]["table"][tokens].to(_dtype(cfg.compute_dtype))
+    if cfg.vlm is not None and batch is not None and "image_embeds" in batch:
+        img = linear(params["vision_proj"], batch["image_embeds"].to(x.dtype))
+        n_img, S = img.shape[1], x.shape[1]
+        if S < n_img:
+            raise ValueError(f"_embed: a prompt of {S} tokens is shorter than its "
+                             f"{n_img} image positions")
+        x = torch.cat([img, x[:, n_img:]], dim=1)
+    return x
+
+
+def _run_block(bp, x, cfg: ArchConfig, remat: bool, **kw):
+    """``block_apply``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return checkpoint(block_apply, bp, x, cfg, use_reentrant=False, **kw)
+    return block_apply(bp, x, cfg, **kw)
+
+
+def _encode(params, audio_embeds, cfg: ArchConfig):
+    """The encoder: ``audio_embeds`` (B, S_enc, d) in ``cfg.compute_dtype``
+    through the non-causal encoder blocks (self-attention with RoPE, as the
+    reference has it), then ``enc_norm``."""
+    x = audio_embeds.to(_dtype(cfg.compute_dtype))
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for i in range(cfg.encdec.n_encoder_layers):
+        x, _, _ = _run_block(_index(params["enc_blocks"], i), x, cfg, remat, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     """Returns (normed hidden (B, S, d), the MoE load-balance loss summed
-    over blocks (fp32), cache stacked over blocks)."""
+    over blocks (fp32), cache stacked over blocks).  An encoder-decoder
+    encodes ``batch["audio_embeds"]`` first (under the profiler range
+    ``encoder``)."""
     if cfg.remat == "dots":
         raise NotImplementedError(
             f"final_hidden: remat={cfg.remat!r} needs a selective checkpoint "
             "policy (the reference's dots_with_no_batch_dims_saveable), which "
             "the port does not have; use 'block' or 'none'")
-    x = _embed(params, batch["tokens"], cfg)
+    enc_out = None
+    if cfg.is_encdec:
+        with record_function("encoder"):
+            enc_out = _encode(params, batch["audio_embeds"], cfg)
+    x = _embed(params, batch["tokens"], cfg, batch)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
-        bp = _index(params["blocks"], i)
-        if remat:
-            x, cache, aux_i = checkpoint(block_apply, bp, x, cfg, causal=True,
-                                         collect_cache=collect_cache, use_reentrant=False)
-        else:
-            x, cache, aux_i = block_apply(bp, x, cfg, causal=True,
-                                          collect_cache=collect_cache)
+        x, cache, aux_i = _run_block(_index(params["blocks"], i), x, cfg, remat, causal=True,
+                                     enc_out=enc_out, collect_cache=collect_cache)
         aux = aux + aux_i
         caches.append(cache)
     caches = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
@@ -484,11 +541,12 @@ def decode_step(params, cache, token, pos: int, cfg: ArchConfig):
 
 
 def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
-                      dtype=None):
+                      dtype=None, enc_len: int | None = None):
     """Zero decode cache: KV caches for attention layers; for mamba layers
     the fp32 recurrent state (d_state x head_dim) and the last d_conv - 1
     inputs of the conv; for rwkv layers the fp32 recurrent state and the
-    two token-shift rows."""
+    two token-shift rows; for an encoder-decoder the cross-attention keys
+    and values of ``enc_len`` (default ``n_audio_ctx``) encoder positions."""
     dtype = dtype or _dtype(cfg.compute_dtype)
     kinds = _layer_kinds(cfg)
     nb = cfg.n_blocks
@@ -513,4 +571,9 @@ def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
         for key in ("shift_t", "shift_c"):
             cache[key] = torch.zeros((nb, n_rwkv, batch, 1, cfg.d_model),
                                      dtype=dtype, device=device)
+    if cfg.is_encdec:
+        shape = (nb, len(kinds), batch, enc_len or cfg.encdec.n_audio_ctx,
+                 cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache

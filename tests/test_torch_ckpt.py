@@ -207,13 +207,15 @@ def test_manifest_byte_identical_to_jax(tmp_path):
                 == (tmp_path / "port" / "ckpt" / "step_2" / name).read_bytes())
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-1.5-large-398b",
+                                  "whisper-medium", "llava-next-mistral-7b"])
 def test_model_checkpoint_crosses_both_ways(tmp_path, arch):
-    """A bf16 parameter tree of the MoE and hybrid families, saved by each
-    package: byte-identical manifests and digests; the JAX save restores
-    into the port, the port's into JAX, byte for byte, every leaf in its own
-    dtype (the stacked expert weights bf16, the router and mamba's A_log,
-    dt_bias and D fp32)."""
+    """A bf16 parameter tree of the MoE, hybrid, encoder-decoder and VLM
+    families, saved by each package: byte-identical manifests and digests;
+    the JAX save restores into the port, the port's into JAX, byte for byte,
+    every leaf in its own dtype (the stacked expert weights bf16, the router
+    and mamba's A_log, dt_bias and D fp32; whisper's encoder blocks and
+    cross-attention, llava's vision_proj)."""
     jcfg = jax_get_config(arch).scaled_down(param_dtype="bfloat16")
     jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
@@ -226,11 +228,19 @@ def test_model_checkpoint_crosses_both_ways(tmp_path, arch):
     flat = flatten(params)
     fp32 = {p for p, t in flat.items() if t.dtype == torch.float32}
     moe = {p for p in flat if "/moe/" in p}
-    assert moe and all(flat[p].dtype == torch.float32 for p in moe if p.endswith("router/w"))
+    assert bool(moe) == (arch in ("granite-moe-1b-a400m", "jamba-1.5-large-398b"))
+    assert all(flat[p].dtype == torch.float32 for p in moe if p.endswith("router/w"))
     assert all(flat[p].dtype == torch.bfloat16 and flat[p].dim() == 4 for p in moe
                if p.endswith(("/wi", "/wo", "/wg")))  # (blocks, E, ., .)
     if arch.startswith("jamba"):
         assert {p.rsplit("/", 1)[1] for p in fp32 if "/mamba/" in p} == {"A_log", "dt_bias", "D"}
+    else:
+        assert fp32 == {p for p in moe if p.endswith("router/w")}
+    if arch == "whisper-medium":
+        assert any(p.startswith("enc_blocks/") for p in flat)
+        assert any("/xattn/" in p for p in flat) and "enc_norm/scale" in flat
+    if arch == "llava-next-mistral-7b":
+        assert flat["vision_proj/w"].dtype == torch.bfloat16
 
     like = build(get_config(arch).scaled_down(param_dtype="bfloat16"), "cpu").init(
         torch.Generator().manual_seed(1))

@@ -1,6 +1,8 @@
 """The port's kernels on the card: the serving paths run the flash kernel
 and the ssm_scan kernel once per layer (jamba's hybrid stack: the scan once
-per mamba layer, flash once per attention layer), rwkv6 training runs the
+per mamba layer, flash once per attention layer; whisper: flash once per
+encoder layer, non-causal, and once per decoder layer, the cross-attention
+plain), rwkv6 training runs the
 scan kernel twice a layer with the plain scan's gradients, the flash
 kernel's TMA path and its mma.sync path and the ssm_scan kernel agree with
 their plain versions (the scan also on strided q, k and g and on mamba's
@@ -46,7 +48,9 @@ SSM_CASES = [
 ]
 
 #: B, Sq, Skv, H, KV, dh, causal, window: tests/test_kernels.py's ATTN_CASES,
-#: the served head shape, and lengths ragged against the kernel's 128-row tiles
+#: the served head shape, lengths ragged against the kernel's 128-row tiles,
+#: whisper's encoder heads (non-causal, one q head per kv head) and llava's
+#: (dh 128, 32 / 8 heads) at ragged lengths
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, None),
     (1, 128, 128, 4, 4, 128, True, None),
@@ -57,7 +61,11 @@ FLASH_CASES = [
     (2, 300, 300, 32, 8, 120, True, 128),
     (1, 333, 333, 8, 2, 128, True, 200),
     (2, 130, 333, 4, 1, 64, False, 100),
+    (2, 333, 333, 16, 16, 64, False, None),
+    (2, 300, 300, 32, 8, 128, True, 128),
 ]
+#: the cases of the encoder-decoder and VLM heads, also held in fp32
+WIDE_CASES = FLASH_CASES[-2:]
 
 pytestmark = pytest.mark.gpu
 
@@ -113,6 +121,48 @@ def test_flash_mma_sync_path_matches_plain(cuda, case, offset):
     assert fa_kernel.tma_launches == tma_before
     want = chunked_attention(q, k, v, causal=causal, window=window, chunk=128)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=["noncausal_g1", "dh128"])
+def test_flash_f32_kernel_matches_plain(cuda, case):
+    """The fp32 kernel against the plain chunked version at
+    tests/test_kernels.py's fp32 tolerance (2e-5)."""
+    *_, causal, window = case
+    q, k, v = (t.float() for t in _flash_inputs(case, cuda))
+    before, f32_before = fa_kernel.launches, fa_kernel.f32_launches
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and fa_kernel.f32_launches == f32_before + 1
+    want = chunked_attention(q, k, v, causal=causal, window=window, chunk=128)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_encdec_and_vlm_prefill_run_kernel_per_self_attention(cuda, arch):
+    """whisper: one TMA launch per encoder layer and per decoder layer (its
+    cross-attention is plain); llava: one per layer, the prompt beginning
+    with its image positions.  Logits against plain attention."""
+    cfg = get_config(arch).scaled_down(param_dtype="bfloat16", compute_dtype="bfloat16")
+    api = build(cfg, cuda)
+    params = api.init(torch.Generator(api.device).manual_seed(0))
+    gen = torch.Generator(api.device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96), generator=gen, device=cuda)}
+    if cfg.is_encdec:
+        batch["audio_embeds"] = torch.randn((2, cfg.encdec.n_audio_ctx, cfg.d_model),
+                                            generator=gen, device=cuda)
+    if cfg.vlm is not None:
+        batch["image_embeds"] = torch.randn((2, cfg.vlm.n_image_tokens, cfg.vlm.patch_dim),
+                                            generator=gen, device=cuda)
+    want_launches = cfg.n_layers + (cfg.encdec.n_encoder_layers if cfg.is_encdec else 0)
+    before, tma_before = fa_kernel.launches, fa_kernel.tma_launches
+    with torch.inference_mode():
+        logits, cache, _ = api.prefill(params, batch)
+        assert fa_kernel.launches == before + want_launches
+        assert fa_kernel.tma_launches == tma_before + want_launches
+        plain = build(dataclasses.replace(cfg, attn_impl="full"), cuda)
+        want, _, _ = plain.prefill(params, batch)
+    assert fa_kernel.launches == before + want_launches
+    torch.testing.assert_close(logits, want, rtol=5e-2, atol=5e-2)
 
 
 def test_prefill_runs_kernel_per_layer(cuda):

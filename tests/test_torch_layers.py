@@ -189,3 +189,80 @@ def test_remat_dots_raises():
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="selective"):
         ttf.final_hidden(params, batch, tcfg)
+
+
+def test_cross_attention_apply():
+    """``x_kv``: keys and values from the encoder output, no RoPE, every
+    encoder position visible (the reference's plain ``full_attention``)."""
+    jcfg, tcfg = _cfgs("whisper-medium")
+    p = jl.attention_init(jax.random.PRNGKey(8), jcfg, jnp.float32)
+    x, x_kv = _x((2, 10, jcfg.d_model), 13), _x((2, 24, jcfg.d_model), 14)
+    out, (k, v) = tl.attention_apply(_params(p), torch.from_numpy(x), tcfg, causal=False,
+                                     x_kv=torch.from_numpy(x_kv))
+    jout, (jk, jv) = jl.attention_apply(p, jnp.asarray(x), jcfg, causal=False,
+                                        x_kv=jnp.asarray(x_kv))
+    assert tuple(k.shape) == (2, 24, jcfg.n_kv_heads, jcfg.head_dim)
+    _close(out, jout)
+    _close(k, jk)
+    _close(v, jv)
+
+
+def test_cross_attention_decode():
+    """``cross_kv``: one token against every encoder position, no RoPE, and
+    the self-attention caches are neither read nor written."""
+    jcfg, tcfg = _cfgs("whisper-medium")
+    p = jl.attention_init(jax.random.PRNGKey(9), jcfg, jnp.float32)
+    x = _x((2, 1, jcfg.d_model), 15)
+    ck = _x((2, 24, jcfg.n_kv_heads, jcfg.head_dim), 16)
+    cv = _x((2, 24, jcfg.n_kv_heads, jcfg.head_dim), 17)
+    out, _, _ = tl.attention_decode(_params(p), torch.from_numpy(x), None, None, 5, tcfg,
+                                    cross_kv=(torch.from_numpy(ck), torch.from_numpy(cv)))
+    jout, _, _ = jl.attention_decode(p, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv), 5,
+                                     jcfg, cross_kv=(jnp.asarray(ck), jnp.asarray(cv)))
+    _close(out, jout)
+
+
+def test_encode():
+    """The encoder stack alone: non-causal blocks with RoPE, then enc_norm."""
+    from repro.models import transformer as jtf
+    from repro_torch.models import transformer as ttf
+    jcfg, tcfg = _cfgs("whisper-medium")
+    jparams = jtf.init_params(jax.random.PRNGKey(10), jcfg)
+    audio = _x((2, jcfg.encdec.n_audio_ctx, jcfg.d_model), 18)
+    with torch.inference_mode():
+        got = ttf._encode(_params(jparams), torch.from_numpy(audio), tcfg)
+    _close(got, jtf._encode(jparams, jnp.asarray(audio), jcfg))
+
+
+def _vlm_embed(S, seed):
+    from repro.models import transformer as jtf
+    from repro_torch.models import transformer as ttf
+    jcfg, tcfg = _cfgs("llava-next-mistral-7b")
+    jparams = jtf.init_params(jax.random.PRNGKey(11), jcfg)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, S)).astype(np.int32)
+    img = _x((2, jcfg.vlm.n_image_tokens, jcfg.vlm.patch_dim), seed + 1)
+    jbatch = {"tokens": jnp.asarray(tokens), "image_embeds": jnp.asarray(img)}
+    tbatch = {"tokens": torch.from_numpy(tokens), "image_embeds": torch.from_numpy(img)}
+    return (lambda: jtf._embed(jparams, jbatch["tokens"], jcfg, jbatch),
+            lambda: ttf._embed(_params(jparams), tbatch["tokens"], tcfg, tbatch))
+
+
+def test_embed_splices_image_embeddings():
+    """llava: the first n_image_tokens positions are the projected image
+    embeddings, the rest the token embeddings."""
+    jfn, tfn = _vlm_embed(S=24, seed=19)
+    got = tfn()
+    _close(got, jfn())
+    assert tuple(got.shape) == (2, 24, 128)
+
+
+def test_embed_refuses_prompt_shorter_than_image():
+    """A prompt shorter than its image positions fails in the reference
+    (``dynamic_update_slice``'s shape check) and raises ValueError in the
+    port, naming both lengths."""
+    jfn, tfn = _vlm_embed(S=10, seed=21)
+    with pytest.raises(Exception):
+        jfn()
+    with pytest.raises(ValueError, match="10 tokens .* 16 image positions"):
+        tfn()

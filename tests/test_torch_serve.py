@@ -1,7 +1,9 @@
 """Whole-model serving parity: the port's prefill and greedy decode against
 ``repro.models`` on the reference's own parameters, for three dense
-scaled-down configs, rwkv6-7b (the ssm family), the two MoE configs and
-jamba (mamba2 and attention, with MoE) in fp32."""
+scaled-down configs, rwkv6-7b (the ssm family), the two MoE configs,
+jamba (mamba2 and attention, with MoE), whisper (an encoder and
+cross-attention, fed audio embeddings) and llava (image embeddings in place
+of the first token embeddings) in fp32."""
 
 import dataclasses
 import os
@@ -26,7 +28,8 @@ from repro_torch.runtime.steps import make_serve_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b",
-         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b"]
+         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b", "whisper-medium",
+         "llava-next-mistral-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 32, 4
 
@@ -48,19 +51,39 @@ def _setup(arch, seed, drop_free=False):
     jparams = jax.jit(japi.init)(jax.random.PRNGKey(seed))
     api = build(cfg, "cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
-    tokens = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
-    return japi, jparams, api, params, tokens
+    return japi, jparams, api, params, _batch(jcfg, seed)
+
+
+def _batch(cfg, seed):
+    """Prompt tokens and, for whisper and llava, the audio or image embeddings,
+    numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["audio_embeds"] = rng.standard_normal(
+            (B, cfg.encdec.n_audio_ctx, cfg.d_model)).astype(np.float32)
+    if cfg.vlm is not None:
+        batch["image_embeds"] = rng.standard_normal(
+            (B, cfg.vlm.n_image_tokens, cfg.vlm.patch_dim)).astype(np.float32)
+    return batch
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_match_jax(arch):
-    japi, jparams, api, params, tokens = _setup(arch, seed=0)
+    japi, jparams, api, params, batch = _setup(arch, seed=0)
     max_seq = S + STEPS
     jlogits, jcache, _ = jax.jit(lambda p, b: japi.prefill(p, b, pad_to=max_seq))(
-        jparams, {"tokens": jnp.asarray(tokens)})
+        jparams, _jax(batch))
     with torch.inference_mode():
-        logits, cache, pos = api.prefill(params, {"tokens": torch.from_numpy(tokens)},
-                                         pad_to=max_seq)
+        logits, cache, pos = api.prefill(params, _torch(batch), pad_to=max_seq)
     assert pos == S
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     assert set(cache) == set(jcache)
@@ -85,24 +108,25 @@ def test_prefill_decode_match_jax(arch):
 def test_prefill_decode_consistency(arch):
     """Decode logits after a prefill match a prefill of the extended
     sequence (tests/test_arch_smoke.py::test_prefill_decode_consistency)."""
-    _, _, api, params, tokens = _setup(arch, seed=2, drop_free=True)
-    tokens = torch.from_numpy(tokens)
+    _, _, api, params, batch = _setup(arch, seed=2, drop_free=True)
+    batch = _torch(batch)
     with torch.inference_mode():
-        logits_p, cache, pos = api.prefill(params, {"tokens": tokens}, pad_to=S + 4)
+        logits_p, cache, pos = api.prefill(params, batch, pad_to=S + 4)
         assert logits_p.shape == (B, 1, api.cfg.vocab_size)
         assert torch.isfinite(logits_p).all()
         next_tok = logits_p[:, -1].argmax(-1).to(torch.int32)[:, None]
         logits_d, cache = api.decode(params, cache, next_tok, S)
         assert logits_d.shape == (B, 1, api.cfg.vocab_size)
         assert torch.isfinite(logits_d).all()
-        ext = torch.cat([tokens, next_tok], dim=1)
-        logits_full, _, _ = api.prefill(params, {"tokens": ext})
+        ext = dict(batch, tokens=torch.cat([batch["tokens"], next_tok], dim=1))
+        logits_full, _, _ = api.prefill(params, ext)
     np.testing.assert_allclose(logits_d[:, 0].numpy(), logits_full[:, -1].numpy(),
                                rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "rwkv6-7b", "granite-moe-1b-a400m",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "whisper-medium",
+                                  "llava-next-mistral-7b"])
 def test_param_tree_layout_matches_jax(arch):
     """Same paths, shapes and dtypes as the reference tree, so weights carry
     across as a byte copy (bf16 included, and the fp32 leaves inside a bf16
@@ -125,11 +149,19 @@ def test_param_tree_layout_matches_jax(arch):
                                       np.asarray(leaf).reshape(-1).view(np.uint8))
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
-def test_unported_family_raises(arch):
-    """The encoder-decoder and VLM families are not ported yet (ROADMAP A11)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build(get_config(arch).scaled_down(), "cpu")
+@pytest.mark.parametrize("arch,enc_len", [("whisper-medium", None), ("whisper-medium", 40),
+                                          ("jamba-1.5-large-398b", None), ("rwkv6-7b", None)])
+def test_decode_cache_matches_jax(arch, enc_len):
+    """``make_cache`` gives the reference's keys, shapes and dtypes, the
+    cross-attention caches sized by ``enc_len`` (default ``n_audio_ctx``)."""
+    jcache = jax_build(jax_get_config(arch).scaled_down()).make_cache(
+        B, S, abstract=True, enc_len=enc_len)
+    cache = build(get_config(arch).scaled_down(), "cpu").make_cache(B, S, enc_len=enc_len)
+    assert set(cache) == set(jcache)
+    for key, leaf in jcache.items():
+        assert tuple(cache[key].shape) == leaf.shape, key
+        assert str(cache[key].dtype).removeprefix("torch.") == str(leaf.dtype), key
+        assert not cache[key].any(), key
 
 
 def _serve_cli(arch):
@@ -156,3 +188,11 @@ def test_serve_cli_cpu_granite_moe():
 
 def test_serve_cli_cpu_jamba():
     _serve_cli("jamba-1.5-large-398b")
+
+
+def test_serve_cli_cpu_whisper():
+    _serve_cli("whisper-medium")
+
+
+def test_serve_cli_cpu_llava():
+    _serve_cli("llava-next-mistral-7b")

@@ -487,20 +487,6 @@ def test_rwkv_params_keep_fp32_leaves():
         params_from_jax(p, "cpu", dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch,item,scaled", [("whisper-medium", "A11", True),
-                                              ("whisper-medium", "A11", False)],
-                         ids=["scaled_down", "full_width"])
-def test_pending_layer_kinds_raise(arch, item, scaled):
-    """Cross-attention, the one layer kind not ported yet, raises from the
-    model code too (``_layer_kinds``), naming its ROADMAP item, before
-    anything is allocated."""
-    cfg = get_config(arch).scaled_down() if scaled else get_config(arch)
-    with pytest.raises(NotImplementedError, match=item):
-        ttf.block_init(torch.Generator().manual_seed(0), cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        ttf.make_decode_cache(cfg, 1, 8, "cpu")
-
-
 def test_every_kernel_source_is_built_up_front():
     """chip_smoke.py builds ``_build.SOURCES`` in parallel before it runs
     anything; every kernel binding's source must be among them."""

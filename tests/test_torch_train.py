@@ -1,8 +1,9 @@
 """Whole-model training parity: the port's loss, gradients and train step
 against ``repro`` on the reference's own parameters, for three dense
 scaled-down configs, rwkv6 (its scan through ``SSMScan``'s plain
-backward), the two MoE configs (the load-balance loss in the objective)
-and jamba in fp32; then the port's ports of the runtime tests
+backward), the two MoE configs (the load-balance loss in the objective),
+jamba, whisper (the encoder and cross-attention under block remat) and
+llava (image embeddings spliced in) in fp32; then the port's ports of the runtime tests
 (tests/test_runtime.py): AdamW on a quadratic, the loss going down and a
 restart after preemption."""
 
@@ -32,7 +33,8 @@ from repro_torch.runtime.steps import make_train_state, make_train_step, value_a
 from repro_torch.runtime.train import TrainLoopConfig, run_training
 
 ARCHS = ["h2o-danube-3-4b", "qwen1.5-0.5b", "granite-20b", "rwkv6-7b",
-         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b"]
+         "granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b", "whisper-medium",
+         "llava-next-mistral-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 S = 128  # two logit chunks and two attention chunks of the scaled-down configs
 #: eps sits well above the fp32 noise of vanishing gradient entries: at step 1
@@ -53,7 +55,14 @@ def _setup(arch, seed, batch):
     tokens = rng.integers(0, jcfg.vocab_size, (batch, S)).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
     labels[0, :5] = -1  # some ignored positions inside the sequence too
-    return japi, jparams, api, params, {"tokens": tokens, "labels": labels}
+    data = {"tokens": tokens, "labels": labels}
+    if jcfg.is_encdec:
+        data["audio_embeds"] = rng.standard_normal(
+            (batch, jcfg.encdec.n_audio_ctx, jcfg.d_model)).astype(np.float32)
+    if jcfg.vlm is not None:
+        data["image_embeds"] = rng.standard_normal(
+            (batch, jcfg.vlm.n_image_tokens, jcfg.vlm.patch_dim)).astype(np.float32)
+    return japi, jparams, api, params, data
 
 
 def _torch_batch(batch):

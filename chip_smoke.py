@@ -100,7 +100,25 @@
    losses and gradients through the kernel in bf16 and fp32 against the
    plain scan's, the warm training rate and a profiled step's device time
    split into the scan kernel, the plain scan backward, AdamW and the rest;
-14. prints one JSON line of per-kernel launches (by path), times and
+14. trains full-width, full-depth granite-moe-1b-a400m (uncut: 24 layers,
+   1,334,628,352 parameters) the same way (``train_moe``): one fp32 step's
+   per-token losses, moe_aux and gradient leaves through the kernel against
+   plain attention's within MOE_TRAIN_FP32_LIMIT (the kernel fed
+   bf16-rounded q, k, v must land beyond it; routing decisions that differ
+   printed), 2 TMA flash launches per layer and step, the warm rate and a
+   profiled step split into the flash forward, the plain attention
+   backward, MoE dispatch and combine, AdamW and the rest; then it saves the
+   trained parameters with save_checkpoint (lanesum32 on the card);
+15. serves through the sharding layer (``serve_sharded``): a one-rank NCCL
+   group and a (1, 1) ("data", "model") CUDA mesh; granite-moe's trained
+   parameters restored from that checkpoint onto the prefill cell's
+   placements (digests verified on the card), 4 x 512 prompts and 8 decode
+   steps through ``launch.cells.build_cell``'s prefill and decode steps,
+   24 flash launches a prefill through ``local_map``, bf16 first tokens and
+   fp32 logits (within SHARDED_FP32_LIMIT) against the unsharded run, both
+   prefills' walls and idle shares; then jamba scaled down in fp32 the same
+   way (the scan and flash's fp32 path through ``local_map``);
+16. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -236,6 +254,8 @@ MOE_WORKLOADS = [(4, 512, 32), (1, 5120, 8)]
 #: / 1 x 5120 (no routing decision differed); the kernel fed bf16-rounded
 #: q, k, v read 0.109 / 0.036 and must stay above it.
 MOE_FP32_LOGIT_LIMIT = 1e-3
+#: moe_apply's record_function ranges: profiles keep them out of the kernels
+MOE_RANGES = ("moe/dispatch", "moe/combine")
 
 #: jamba: one mamba mixer at full width, (batch, tokens) of its prefills,
 #: then this many one-token decode steps
@@ -270,6 +290,21 @@ VLM_ARCH = "llava-next-mistral-7b"
 #: (requests, prompt tokens, generated tokens), each prompt beginning with
 #: n_image_tokens = 1152 image positions: a chat request with one anyres image
 LLAVA_WORKLOADS = [(4, 2048, 32), (1, 5120, 8)]
+#: MoE training: granite-moe-1b-a400m uncut, TRAIN_BATCH x TRAIN_SEQ tokens a
+#: step, this many steps through run_training, then warm steps timed
+MOE_TRAIN_STEPS, MOE_WARM_STEPS = 3, 5
+#: granite-moe fp32 training step, flash kernel against plain attention: the
+#: largest per-token loss and moe_aux difference and the largest gradient
+#: leaf's relative L2 error allowed.  Set before the first run from serving's
+#: readings (fp32 logits 4.2e-6 / 7.6e-6 from plain attention's, the
+#: bf16-input kernel's 0.036-0.109); the kernel fed bf16-rounded q, k, v
+#: must land beyond it on the per-token losses.
+MOE_TRAIN_FP32_LIMIT = 1e-3
+#: the sharded serving run: (requests, prompt tokens, decode steps), and the
+#: largest fp32 logit difference allowed against the unsharded prefill (one
+#: rank: every placement is trivial, so the runs should be bit-equal)
+SHARDED_WORKLOAD = (4, 512, 8)
+SHARDED_FP32_LIMIT = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -1142,7 +1177,7 @@ def serve_moe(torch, serve, build, kernels, device):
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
             pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
             by_name, pre_n, _, _, _ = profile_device(
-                torch, prefill, complete=lambda counts: sum(
+                torch, prefill, MOE_RANGES, complete=lambda counts: sum(
                     c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
         check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
               f"3 prefills: {pre_all} launches, {pre_tma} TMA and {pre_sync} mma.sync")
@@ -1670,7 +1705,9 @@ def token_losses(api, params, batch, torch):
     from repro_torch.models.transformer import final_hidden
     with torch.no_grad():
         x, _, _ = final_hidden(params, batch, api.cfg)
-        logits = (x @ params["lm_head"]["w"].to(x.dtype)).float()
+        head = (params["embed"]["table"].T if api.cfg.tie_embeddings
+                else params["lm_head"]["w"])
+        logits = (x @ head.to(x.dtype)).float()
         labels = batch["labels"]
         valid = labels >= 0
         gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0][valid]
@@ -2231,6 +2268,410 @@ def train_rwkv(torch, launch_train, kernels, ssm_ops, ssm_ref, device):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def moe_numerics(torch, s, params, batch, kernels, device):
+    """One fp32 training step of the MoE model (the same bf16 weights in
+    fp32) through the flash kernel (its fp32 path) against the same step
+    through plain attention, and through the kernel fed bf16-rounded q, k,
+    v.  The kernel step's per-token losses, moe_aux and every gradient leaf
+    must lie within MOE_TRAIN_FP32_LIMIT of the plain step's (losses and
+    moe_aux as largest absolute differences, gradients as relative L2
+    errors), and the bf16-input kernel's per-token losses beyond it.  The
+    routing decisions that differ between the runs are printed."""
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.convert import flatten, unflatten
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.steps import value_and_grad
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    cfg = s.api.cfg
+    exact = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+    exact_plain = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"),
+                        device)
+    params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
+    reset_flash_counts(fa_kernel)
+    with routing_recorder(tf, moe) as r_k:
+        loss_k, m_k, g_k = value_and_grad(exact, params32, batch)
+    counts = flash_counts(fa_kernel)
+    check(counts == (2 * cfg.n_layers, 0, 0, 2 * cfg.n_layers),
+          f"flash launches (all, TMA, mma.sync, fp32) {counts} in one fp32 loss and gradient, "
+          f"want {2 * cfg.n_layers} on the fp32 path (forward, then the remat recompute)")
+    with routing_recorder(tf, moe) as r_p:
+        loss_p, m_p, g_p = value_and_grad(exact_plain, params32, batch)
+    check(flash_counts(fa_kernel) == counts, "a plain-attention step launched the kernel")
+    g_k, g_p = flatten(g_k), flatten(g_p)
+    leaves = {path: rel_l2(g, g_p[path]) for path, g in g_k.items()}
+    check(all(math.isfinite(r) for r in leaves.values()), f"non-finite gradients: {leaves}")
+    del g_k
+    with bf16_attention_inputs(layers):
+        loss_b, m_b, g_b = value_and_grad(exact, params32, batch)
+        tok_b, _ = token_losses(exact, params32, batch, torch)
+    g_b = flatten(g_b)
+    leaves_b = {path: rel_l2(g, g_p[path]) for path, g in g_b.items()}
+    del g_b, g_p
+    tok_k, _ = token_losses(exact, params32, batch, torch)
+    tok_p, terms = token_losses(exact_plain, params32, batch, torch)
+    flips, decisions = routing_diff(r_k, r_p)
+    tok_diff = (tok_k - tok_p).abs().max().item()
+    tok_diff_b = (tok_b - tok_p).abs().max().item()
+    aux_diff = abs(m_k["moe_aux"].item() - m_p["moe_aux"].item())
+    worst = max(leaves, key=leaves.get)
+    row = {"flash_launches": counts[0], "flash_f32_launches": counts[3],
+           "loss_kernel_fp32": loss_k.item(), "loss_plain_fp32": loss_p.item(),
+           "loss_bf16_inputs": loss_b.item(), "ln_vocab": math.log(cfg.vocab_size),
+           "loss_terms_fp32": terms,
+           "moe_aux_kernel": m_k["moe_aux"].item(), "moe_aux_plain": m_p["moe_aux"].item(),
+           "moe_aux_bf16_inputs": m_b["moe_aux"].item(), "moe_aux_abs_diff": aux_diff,
+           "token_loss_max_abs_diff": tok_diff, "token_loss_max_abs_diff_bf16_inputs": tok_diff_b,
+           "grad_max_rel_l2": leaves[worst], "grad_max_rel_l2_leaf": worst,
+           "grad_max_rel_l2_bf16_inputs": max(leaves_b.values()),
+           "fp32_limit": MOE_TRAIN_FP32_LIMIT,
+           "routing_decisions": decisions, "fp32_routing_decisions_differing": flips,
+           "grad_rel_l2": leaves}
+    emit({"phase": "train_moe_numerics", **row})
+    check(tok_diff <= MOE_TRAIN_FP32_LIMIT and aux_diff <= MOE_TRAIN_FP32_LIMIT,
+          f"fp32 per-token losses {tok_diff} / moe_aux {aux_diff} from plain attention's, "
+          f"limit {MOE_TRAIN_FP32_LIMIT}")
+    for path, r in leaves.items():
+        check(r <= MOE_TRAIN_FP32_LIMIT, f"fp32 gradient of {path}: {r} from plain attention's")
+    check(tok_diff_b > MOE_TRAIN_FP32_LIMIT,
+          f"the bf16-input kernel's per-token losses are {tok_diff_b} from plain attention's, "
+          f"within the limit {MOE_TRAIN_FP32_LIMIT}: the limit tells nothing apart")
+    del params32, exact, exact_plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_moe(torch, launch_train, kernels, ckpt_dir, device):
+    """The MoE training path: full-width, full-depth granite-moe-1b-a400m
+    (uncut) through repro_torch.launch.train, TRAIN_BATCH x TRAIN_SEQ tokens
+    a step, no checkpoint manager: the fp32 numerics of one step
+    (``moe_numerics``), MOE_TRAIN_STEPS steps of run_training with 2 TMA
+    flash launches per layer and step (the forward, then the block remat's
+    recompute), MOE_WARM_STEPS warm steps for the rate and one profiled
+    step, its device time split into the flash forward, the plain attention
+    backward, MoE dispatch and combine (their record_function ranges, the
+    forward and the remat's recompute), AdamW and the rest.  Then the
+    trained parameters are saved with save_checkpoint under ``ckpt_dir``
+    (lanesum32 on the card), for serve_sharded.  Returns (flash launches,
+    mma.sync launches, checksum launches, the trained params, the row)."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.connectors.posix import PosixConnector
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.models.convert import flatten
+    from repro_torch.runtime.steps import make_train_state, make_train_step
+    from repro_torch.runtime.train import run_training
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    try:
+        argv = ["--arch", MOE_ARCH, "--no-scaled-down", "--batch-size", str(TRAIN_BATCH),
+                "--seq-len", str(TRAIN_SEQ), "--steps", str(MOE_TRAIN_STEPS),
+                "--data-records", "64", "--log-every", "1", "--device", str(device),
+                "--seed", "0", "--ckpt-dir", tmp]
+        s = launch_train.setup(launch_train.parse_args(argv))
+        cfg = s.api.cfg
+        check(cfg == launch_train.get_config(MOE_ARCH), f"not the full config: {cfg}")
+        state = make_train_state(s.api, s.opt, torch.Generator(device).manual_seed(0))
+        leaves = flatten(state)
+        nbytes = lambda prefix: sum(t.numel() * t.element_size() for p, t in leaves.items()
+                                    if p.startswith(prefix))
+        sizes = {"params": sum(t.numel() for p, t in leaves.items() if p.startswith("params/")),
+                 "param_bytes": nbytes("params/"),
+                 "moment_bytes": nbytes("opt/m/") + nbytes("opt/v/"),
+                 "state_leaves": len(leaves)}
+        check(leaves["opt/m/embed/table"].dtype == torch.float32
+              and leaves["params/embed/table"].dtype == torch.bfloat16,
+              "want bf16 parameters and fp32 moments")
+        first = next(ShardedTokenDataset(s.data.connector, s.data.base, s.data.cfg).batches())
+        batch = {k: torch.tensor(v, device=device) for k, v in first.items()}
+        numerics = moe_numerics(torch, s, state["params"], batch, kernels, device)
+
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_flash_counts(fa_kernel)
+        cs_kernel.launches = ssm_kernel.launches = 0
+        run = run_training(s.api, s.opt, s.loop, s.data, state=state)
+        fa_run = flash_counts(fa_kernel)
+        n_step = 2 * cfg.n_layers
+        check(run.steps_run == MOE_TRAIN_STEPS, f"MoE training ran {run.steps_run} steps")
+        check(fa_run == (n_step * run.steps_run, n_step * run.steps_run, 0, 0),
+              f"flash launches (all, TMA, mma.sync, fp32) {fa_run} in {run.steps_run} steps, "
+              f"want {n_step} a step on the TMA path")
+        check(cs_kernel.launches == 0 and ssm_kernel.launches == 0,
+              f"MoE training launched checksum {cs_kernel.launches} / scan "
+              f"{ssm_kernel.launches} times")
+        logged = run.losses + run.grad_norms
+        check(len(run.losses) == MOE_TRAIN_STEPS and all(math.isfinite(v) for _, v in logged),
+              f"losses and grad norms {logged}")
+
+        step_fn = make_train_step(s.api, s.opt)
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        reset_flash_counts(fa_kernel)
+        walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), MOE_WARM_STEPS)]
+        warm_fa = flash_counts(fa_kernel)
+        check(warm_fa == (n_step * MOE_WARM_STEPS, n_step * MOE_WARM_STEPS, 0, 0),
+              f"flash launches {warm_fa} in {MOE_WARM_STEPS} warm steps")
+        wall = statistics.median(walls)
+        ranges = ("train_step/loss_and_grad", "train_step/adamw",
+                  "flash_attention/plain_backward", *MOE_RANGES)
+        by_name, n_launches, spans, cpu_side, busy_in = profile_device(
+            torch, lambda: step_fn(state, batch), ranges, complete=lambda counts: sum(
+                c for n, c in counts.items() if "attn_fwd_bf16_tma" in n) == n_step)
+        check(all(math.isfinite(t.float().sum().item()) for t in flatten(state).values()),
+              "non-finite training state after the warm steps")
+        peak_mem = torch.cuda.max_memory_allocated(device)
+        busy = sum(by_name.values())
+        fa_ms = sum(ms for n, ms in by_name.items() if "attn_fwd" in n)
+        split = {"flash_forward_ms": fa_ms,
+                 "plain_attention_backward_ms": busy_in["flash_attention/plain_backward"],
+                 "moe_dispatch_ms": busy_in["moe/dispatch"],
+                 "moe_combine_ms": busy_in["moe/combine"],
+                 "adamw_ms": busy_in["train_step/adamw"]}
+        split["rest_ms"] = busy - sum(split.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+        # the trained parameters, saved for serve_sharded: lanesum32 on the card
+        params = state["params"]
+        cs_kernel.launches = 0
+        t0 = time.perf_counter()
+        manifest = save_checkpoint(params, PosixConnector(ckpt_dir), "ckpt", step=run.steps_run)
+        save_s = time.perf_counter() - t0
+        n_leaves = len(flatten(params))
+        want_cs = n_leaves + len(manifest["objects"])  # source digests, post-write verify
+        check(cs_kernel.launches == want_cs,
+              f"{cs_kernel.launches} checksum launches saving {n_leaves} leaves, want {want_cs}")
+        row = {"arch": MOE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+               "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, "d_ff": cfg.d_ff,
+               "vocab": cfg.vocab_size, **sizes, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+               "run": {"steps_run": run.steps_run, "losses": run.losses,
+                       "grad_norms": run.grad_norms, "step_seconds": run.step_seconds},
+               "flash_launches_per_step": n_step,
+               "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+               "profile": {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
+                           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(by_name),
+                           "kernel_launches": n_launches, **split,
+                           "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
+                           "device_busy_ms_in_range": busy_in,
+                           "top_kernels_ms": {n[:80]: ms for n, ms in top}},
+               "max_memory_allocated": peak_mem,
+               "save": {"leaves": n_leaves, "objects": len(manifest["objects"]),
+                        "checksum_launches": cs_kernel.launches, "seconds": save_s}}
+        emit({"phase": "train_moe", **row})
+        del state, s, leaves, batch, numerics
+        torch.cuda.empty_cache()
+        # the main path's launches: run_training's steps and the save
+        return fa_run[0], fa_run[2], cs_kernel.launches, params, row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_case(torch, kernels, mesh, arch, cfg, params, dparams, batch, n_dec, device,
+                 timed=False):
+    """One served model through build_cell's prefill and decode steps on
+    ``mesh`` (``dparams`` the DTensor params) against the same prefill and
+    decode steps unsharded (``params``): logits, greedy tokens and the
+    kernels' launches, and with ``timed`` both prefills' wall ms (in turns:
+    unsharded, sharded, sharded, unsharded) and a profiled prefill each."""
+    from repro_torch.launch.cells import build_cell, distribute_like
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.steps import make_serve_step
+    from torch.distributed.tensor import DTensor
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    B, S = batch["tokens"].shape
+    pre = build_cell(arch, ShapeConfig("serve_sharded", S, B, "prefill"), mesh, cfg=cfg,
+                     pad_to=S + n_dec)
+    dec = build_cell(arch, ShapeConfig("serve_sharded", S + n_dec, B, "decode"), mesh, cfg=cfg)
+    dbatch = distribute_like(batch, pre.in_shardings[1], mesh)
+    api = build(cfg, device)
+    serve_step = make_serve_step(api)
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+
+    def unsharded():
+        return api.prefill(params, batch, pad_to=S + n_dec)[:2]
+
+    def sharded():
+        return pre.step_fn(dparams, dbatch)
+
+    with torch.inference_mode():
+        lg_u, cache_u = unsharded()
+    reset_flash_counts(fa_kernel)
+    ssm_kernel.launches = 0
+    lg_s, cache_s = sharded()
+    fa_pre, scan_pre = flash_counts(fa_kernel), ssm_kernel.launches
+    check(isinstance(lg_s, DTensor), "the sharded prefill did not return a DTensor")
+    diff = (local(lg_s) - lg_u).abs().max().item()
+    first_u, first_s = lg_u[:, -1].argmax(-1), local(lg_s)[:, -1].argmax(-1)
+    tok_u, tok_s = first_u[:, None].int(), distribute_like(
+        first_s[:, None].int(), dec.in_shardings[2], mesh)
+    toks_u, toks_s, dec_diff = [tok_u], [local(tok_s)], 0
+    reset_flash_counts(fa_kernel)
+    ssm_kernel.launches = 0
+    for i in range(n_dec):
+        with torch.inference_mode():
+            tok_u, cache_u = serve_step(params, cache_u, tok_u, S + i)
+        tok_s, cache_s = dec.step_fn(dparams, cache_s, tok_s, S + i)
+        toks_u.append(tok_u)
+        toks_s.append(local(tok_s))
+    fa_dec, scan_dec = flash_counts(fa_kernel), ssm_kernel.launches
+    for key, t in cache_u.items():
+        dec_diff = max(dec_diff, (local(cache_s[key]).float() - t.float()).abs().max().item())
+    toks_u, toks_s = torch.cat(toks_u, 1), torch.cat(toks_s, 1)
+    row = {"arch": arch, "compute_dtype": cfg.compute_dtype, "requests": B, "prompt_len": S,
+           "decode_steps": n_dec,
+           "placements": {"logits": [str(p) for p in lg_s.placements],
+                          **{k: [str(p) for p in v.placements] for k, v in cache_s.items()}},
+           "prefill_flash_launches": list(fa_pre), "prefill_scan_launches": scan_pre,
+           "decode_flash_launches": list(fa_dec), "decode_scan_launches": scan_dec,
+           "max_abs_logit_diff_vs_unsharded": diff,
+           "max_abs_cache_diff_after_decode": dec_diff,
+           "first_tokens": first_s.tolist(), "first_tokens_unsharded": first_u.tolist(),
+           "decode_tokens_equal": bool(torch.equal(toks_s, toks_u)),
+           "sample_tokens": toks_s[0].tolist()}
+    if timed:
+        walls = {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            fn = unsharded if name == "unsharded" else sharded
+            with torch.inference_mode() if name == "unsharded" else contextlib.nullcontext():
+                walls[name] += wall_ms(torch, fn, 3)
+        prof = {}
+        for name, fn in (("unsharded", unsharded), ("sharded", sharded)):
+            with torch.inference_mode() if name == "unsharded" else contextlib.nullcontext():
+                by_name, n, _, _, _ = profile_device(
+                    torch, fn, MOE_RANGES, complete=lambda counts: sum(
+                        c for k, c in counts.items() if "attn_fwd" in k) == fa_pre[0])
+            busy, wall = sum(by_name.values()), statistics.median(walls[name])
+            prof[name] = {"wall_ms": walls[name], "wall_ms_median": wall,
+                          "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                          "kernels": n, "top_kernels_ms": {k[:80]: v for k, v in sorted(
+                              by_name.items(), key=lambda kv: -kv[1])[:6]}}
+        prof["host_ms_added"] = (prof["sharded"]["wall_ms_median"]
+                                 - prof["unsharded"]["wall_ms_median"])
+        row["prefill_profile"] = prof
+    return row
+
+
+def serve_sharded(torch, kernels, ckpt_dir, trained, device):
+    """The sharding layer on the card: a one-rank NCCL group and a (1, 1)
+    ("data", "model") CUDA mesh.  granite-moe-1b-a400m's parameters come
+    from train_moe's checkpoint through restore_checkpoint with the prefill
+    cell's placements (each leaf read, its lanesum32 verified on the card,
+    kept as a DTensor) and must equal the trained ones byte for byte; its
+    SHARDED_WORKLOAD runs through build_cell's prefill and decode steps in
+    bf16 (24 TMA flash launches a prefill through local_map, the greedy
+    first tokens of the unsharded run; walls and idle shares of both
+    prefills) and in fp32 compute (24 launches on flash's fp32 path, logits
+    within SHARDED_FP32_LIMIT of the unsharded fp32 prefill's).  Then jamba
+    scaled down in fp32 (HYBRID_WORKLOADS) the same way: the scan kernel
+    once per mamba layer and flash once per attention layer, both through
+    local_map.  Every placement is trivial on one rank, so the sharded run
+    should be bit-equal.  The group is torn down before returning."""
+    import torch.distributed as dist
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.connectors.posix import PosixConnector
+    from repro_torch.launch import serve
+    from repro_torch.launch.cells import build_cell, distribute_like
+    from repro_torch.launch.mesh import make_test_mesh, mesh_info
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.registry import build
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        rows, launches = [], {"flash": 0, "scan": 0, "checksum": 0, "sync": 0}
+        cfg = serve.get_config(MOE_ARCH)
+        B, S, n_dec = SHARDED_WORKLOAD
+        cell = build_cell(MOE_ARCH, ShapeConfig("serve_sharded", S, B, "prefill"), mesh,
+                          cfg=cfg, pad_to=S + n_dec)
+        cs_kernel.launches = 0
+        t0 = time.perf_counter()
+        dparams, step = restore_checkpoint(build(cfg, device).abstract_params(),
+                                           PosixConnector(ckpt_dir), "ckpt",
+                                           shardings=cell.in_shardings[0])
+        restore_s = time.perf_counter() - t0
+        n_leaves = len(flatten(trained))
+        launches["checksum"] = cs_kernel.launches
+        check(cs_kernel.launches == n_leaves,
+              f"{cs_kernel.launches} checksum launches restoring {n_leaves} leaves")
+        flat = flatten(dparams)
+        check(all(torch.equal(flat[k].to_local(), v) for k, v in flatten(trained).items()),
+              "the restored shards differ from the trained parameters")
+        gen = torch.Generator(device).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                         device=device)}
+        for compute in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=compute)
+            row = sharded_case(torch, kernels, mesh, MOE_ARCH, c, trained, dparams, batch,
+                               n_dec, device, timed=compute == "bfloat16")
+            row.update(mesh=mesh_info(mesh), restored_step=step, restore_s=restore_s,
+                       restore_checksum_launches=n_leaves)
+            emit({"phase": "serve_sharded", **row})
+            fa = row["prefill_flash_launches"]
+            launches["flash"] += fa[0] + row["decode_flash_launches"][0]
+            launches["sync"] += fa[2] + row["decode_flash_launches"][2]
+            path = 1 if compute == "bfloat16" else 3  # the TMA or the fp32 path
+            check(fa[0] == fa[path] == cfg.n_layers and row["decode_flash_launches"][0] == 0,
+                  f"flash launches {fa} a sharded prefill, want {cfg.n_layers} on one path")
+            check(row["first_tokens"] == row["first_tokens_unsharded"],
+                  f"sharded first tokens {row['first_tokens']}, unsharded "
+                  f"{row['first_tokens_unsharded']}")
+            if compute == "float32":
+                check(row["max_abs_logit_diff_vs_unsharded"] <= SHARDED_FP32_LIMIT,
+                      f"sharded fp32 logits {row['max_abs_logit_diff_vs_unsharded']} from the "
+                      f"unsharded ones, limit {SHARDED_FP32_LIMIT}")
+            rows.append(row)
+        del dparams, cell
+        torch.cuda.empty_cache()
+
+        # jamba scaled down in fp32: the scan's and flash's fp32 path under the mesh
+        for B, S, gen_len in HYBRID_WORKLOADS:
+            args = serve.parse_args(["--arch", HYBRID_ARCH, "--requests", str(B),
+                                     "--prompt-len", str(S), "--device", str(device),
+                                     "--seed", "0"])
+            api, params, batch = serve.setup(args)
+            cfg = api.cfg
+            kinds = cfg.block_pattern() * cfg.n_blocks
+            n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+            cell = build_cell(HYBRID_ARCH, ShapeConfig("serve_sharded", S, B, "prefill"), mesh,
+                              cfg=cfg)
+            dparams = distribute_like(params, cell.in_shardings[0], mesh)
+            row = sharded_case(torch, kernels, mesh, HYBRID_ARCH, cfg, params, dparams, batch,
+                               gen_len - 1, device)
+            row["mesh"] = mesh_info(mesh)
+            emit({"phase": "serve_sharded", **row})
+            fa = row["prefill_flash_launches"]
+            launches["flash"] += fa[0]
+            launches["sync"] += fa[2]
+            launches["scan"] += row["prefill_scan_launches"] + row["decode_scan_launches"]
+            check(row["prefill_scan_launches"] == n_mamba and row["decode_scan_launches"] == 0,
+                  f"scan launches {row['prefill_scan_launches']} a sharded prefill, want "
+                  f"{n_mamba}, and {row['decode_scan_launches']} in decode")
+            check(fa == [n_attn, 0, 0, n_attn], f"flash launches {fa} a sharded prefill, want "
+                                                f"{n_attn} on the fp32 path")
+            check(row["first_tokens"] == row["first_tokens_unsharded"],
+                  f"sharded first tokens {row['first_tokens']}, unsharded "
+                  f"{row['first_tokens_unsharded']}")
+            check(row["max_abs_logit_diff_vs_unsharded"] <= SHARDED_FP32_LIMIT,
+                  f"sharded fp32 logits {row['max_abs_logit_diff_vs_unsharded']} from the "
+                  f"unsharded ones, limit {SHARDED_FP32_LIMIT}")
+            rows.append(row)
+            del api, params, dparams, cell
+            torch.cuda.empty_cache()
+        return rows, launches
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import argparse
 
@@ -2284,6 +2725,7 @@ def main() -> int:
     largest_leaf = ("largest training leaf, opt/m/lm_head/w", (cfg.d_model, cfg.vocab_size),
                     torch.float32)
     kernels = (fa_kernel, cs_kernel, ssm_kernel)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")  # train_moe -> serve_sharded
     try:
         worst = kernel_check(torch, fa_kernel, fa_ref, device)
         cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
@@ -2308,28 +2750,41 @@ def main() -> int:
         torch.cuda.empty_cache()
         rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
             torch, launch_train, kernels, ssm_ops, ssm_ref, device)
+        torch.cuda.empty_cache()
+        moe_train_fa, moe_train_sync, moe_train_cs, trained, _ = train_moe(
+            torch, launch_train, kernels, ckpt_dir, device)
+        torch.cuda.empty_cache()
+        _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
+        del trained
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
                    "serve_moe": moe_sync, "serve_whisper": whisper_sync, "serve_vlm": vlm_sync,
-                   **train_sync, "train_rwkv": rwkv_train_sync}
+                   **train_sync, "train_rwkv": rwkv_train_sync, "train_moe": moe_train_sync,
+                   "serve_sharded": sharded["sync"]}
     fa_by_path = {"serve": serve_fa, "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
                   "serve_hybrid": hybrid["flash"], "serve_whisper": whisper_fa,
-                  "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0}
+                  "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0,
+                  "train_moe": moe_train_fa, "serve_sharded": sharded["flash"]}
     cs_by_path = {"serve": 0, "serve_rwkv": 0, "serve_moe": 0, "mamba_layer": 0,
                   "serve_hybrid": 0, "serve_whisper": 0, "serve_vlm": 0, "train": train_cs,
-                  "train_mirror_restore": mirror_cs, "train_rwkv": 0}
+                  "train_mirror_restore": mirror_cs, "train_rwkv": 0, "train_moe": moe_train_cs,
+                  "serve_sharded": sharded["checksum"]}
     ssm_by_path = {"serve": 0, "serve_rwkv": rwkv_ssm, "serve_moe": 0, "mamba_layer": mamba_ssm,
                    "serve_hybrid": hybrid["scan"], "serve_whisper": 0, "serve_vlm": 0,
-                   "train": 0, "train_rwkv": rwkv_train_ssm}
+                   "train": 0, "train_rwkv": rwkv_train_ssm, "train_moe": 0,
+                   "serve_sharded": sharded["scan"]}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "kernel": "attn_fwd_bf16_tma (TMA, wgmma); attn_fwd_f32 on serve_hybrid's fp32 path",
+        "kernel": "attn_fwd_bf16_tma (TMA, wgmma); attn_fwd_f32 on serve_hybrid's and "
+                  "serve_sharded's fp32 paths",
         "launches": sum(fa_by_path.values()), "launches_by_path": fa_by_path,
         # read in each run of each main path, and checked to be 0 there
         "mma_sync_path_launches_by_run": sync_by_run,

@@ -23,6 +23,13 @@ kernel per leaf and reads all the sums back once.
 Leaves are written as their row-major bytes (``t.contiguous()`` viewed as
 uint8) and read back with ``torch.frombuffer`` and a ``view`` to the
 manifest's dtype, so bfloat16 needs no numpy support for it.
+
+The format does not depend on a mesh.  A ``DTensor`` leaf is saved as its
+full tensor (every rank gathers it; rank 0 writes), so a sharded save is
+byte for byte the unsharded save of the same state.  ``restore_checkpoint``
+with ``shardings`` has every rank read each full leaf, verify its digest
+on the mesh's device, and keep its own shard (elastic restart onto another
+mesh).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..core.connector import Connector, Credential
 from ..core.errors import IntegrityError, NotFound
@@ -92,7 +101,8 @@ def snapshot(state, timings: dict | None = None) -> list[HostLeaf]:
     ``state`` in place afterwards.  Leaves come in sorted path order."""
     timings = {} if timings is None else timings
     leaves = sorted(flatten(state).items())
-    tensors = [t.detach().contiguous() for _, t in leaves]
+    tensors = [(t.full_tensor() if isinstance(t, DTensor) else t).detach().contiguous()
+               for _, t in leaves]
     t0 = time.perf_counter()
     digests = _digests([t.device for t in tensors], tensors.__getitem__)
     t1 = time.perf_counter()  # digests read back: the device work is done
@@ -193,9 +203,20 @@ def save_checkpoint(state, connector: Connector, base: str, step: int,
                     credential: Credential | None = None,
                     bundle_threshold: int = 4 * MB,
                     verify: bool = True) -> dict:
-    """Writes ``state`` under ``base/step_<n>/``.  Returns the manifest."""
-    return write_snapshot(snapshot(state), connector, base, step, credential,
-                          bundle_threshold, verify)
+    """Writes ``state`` under ``base/step_<n>/``.  Returns the manifest.
+    With ``DTensor`` leaves every rank must call it (each gathers the full
+    leaves); rank 0 of the default group writes and sends the others the
+    manifest it wrote."""
+    leaves = snapshot(state)
+    if not any(isinstance(t, DTensor) for t in flatten(state).values()):
+        return write_snapshot(leaves, connector, base, step, credential,
+                              bundle_threshold, verify)
+    box = [None]
+    if dist.get_rank() == 0:
+        box[0] = write_snapshot(leaves, connector, base, step, credential,
+                                bundle_threshold, verify)
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def latest_step(connector: Connector, base: str,
@@ -210,14 +231,24 @@ def latest_step(connector: Connector, base: str,
         connector.destroy(session)
 
 
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def restore_checkpoint(abstract_state, connector: Connector, base: str,
                        step: int | None = None,
                        credential: Credential | None = None,
-                       verify: bool = True):
+                       shardings=None, verify: bool = True):
     """Restores into the structure of ``abstract_state`` (a tree of tensors,
     ``meta`` ones included).  Each leaf takes the manifest's shape and
     dtype and lands on its abstract leaf's device (the CPU for ``meta``).
-    Returns (state, step)."""
+    With ``shardings`` (a tree of the same structure whose leaves have a
+    ``mesh`` and ``placements``: ``launch.cells.Sharding``), each rank reads
+    the full leaf onto the mesh's device, verifies its digest there, and
+    keeps its shard as a ``DTensor``, on a mesh that may differ from the
+    saver's (elastic restart).  Returns (state, step)."""
     session = connector.start(credential)
     try:
         if step is None:
@@ -244,9 +275,13 @@ def restore_checkpoint(abstract_state, connector: Connector, base: str,
                 raise NotFound(f"checkpoint object for {path}")
             return _to_device(data, dev), meta
 
+        placed = {p: sh for p, sh in flatten(shardings or {}).items() if sh is not None}
         loaded = {}
         for path, spec in flatten(abstract_state).items():
-            dev = torch.device("cpu") if spec.device.type == "meta" else spec.device
+            if path in placed:
+                dev = _mesh_device(placed[path].mesh)
+            else:
+                dev = torch.device("cpu") if spec.device.type == "meta" else spec.device
             loaded[path] = load(path, dev)
         if verify:
             u8s = [u8 for u8, _ in loaded.values()]
@@ -255,6 +290,10 @@ def restore_checkpoint(abstract_state, connector: Connector, base: str,
                     raise IntegrityError(f"checksum mismatch restoring {path}")
         restored = {path: u8.view(torch_dtype(meta["dtype"])).reshape(meta["shape"])
                     for path, (u8, meta) in loaded.items()}
+        for path, sh in placed.items():
+            # every rank read the same leaf: each keeps its shard, nothing sent
+            restored[path] = distribute_tensor(restored[path], sh.mesh, sh.placements,
+                                               src_data_rank=None)
         return unflatten(abstract_state, restored), step
     finally:
         connector.destroy(session)

@@ -18,11 +18,18 @@ forward is the dispatch above.  The reference has no backward kernel: it
 trains through ``jax.grad`` of ``chunked_attention``.  So the backward
 here recomputes ``chunked_attention`` under autograd from the saved q, k,
 v and backpropagates through it, on either device; it launches no kernel.
+
+Sharded inputs (``DTensor``s, once a cell's params are distributed) go
+through ``local_map``: neither the kernel nor ``FlashAttention`` knows
+DTensor, so each rank runs it, the kernel on CUDA or the plain form on
+the CPU, on its local batch rows and heads (``_local_heads``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import kernel
 from .ref import chunked_attention
@@ -31,7 +38,7 @@ from .ref import chunked_attention
 CPU_CHUNK = 128
 
 
-def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
+def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False, shard_constrain=False):
     if accum_bf16 and q.device.type != "cpu":
         raise NotImplementedError(
             "flash_attention: attn_accum_bf16 has no Hopper kernel; the kernel "
@@ -39,8 +46,8 @@ def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
     if q.device.type == "cuda":
         return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
-        return chunked_attention(q, k, v, causal=causal, window=window,
-                                 chunk=chunk, accum_bf16=accum_bf16)
+        return chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                                 accum_bf16=accum_bf16, shard_constrain=shard_constrain)
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 
@@ -50,9 +57,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, chunk: int,
-                accum_bf16: bool = False):
+                accum_bf16: bool = False, shard_constrain: bool = False):
         ctx.save_for_backward(q, k, v)
-        ctx.attn = dict(causal=causal, window=window, chunk=chunk, accum_bf16=accum_bf16)
+        ctx.attn = dict(causal=causal, window=window, chunk=chunk, accum_bf16=accum_bf16,
+                        shard_constrain=shard_constrain)
         return _dispatch(q, k, v, **ctx.attn)
 
     @staticmethod
@@ -62,17 +70,85 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
                 o = chunked_attention(q, k, v, **ctx.attn)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
-        return dq, dk, dv, None, None, None, None
+        # contiguous, as a sharded caller's reshape of them needs (DTensor views
+        # its local shards and cannot copy; a plain reshape would copy anyway)
+        return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None, None, None
+
+
+def _coord(mesh, dims) -> int:
+    """This rank's linear index over the mesh dims ``dims``, major first
+    (the order in which DTensor cuts a dim sharded over several)."""
+    coord, r = mesh.get_coordinate(), 0
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+    return r
+
+
+def _local_heads(q, k, v, attend):
+    """``attend(q, k, v)`` on each rank's local tensors through ``local_map``.
+
+    Batch rows keep q's ``Shard(0)`` and query heads its ``Shard(2)``; every
+    other mesh dim is replicated (the kernel needs whole sequences).  Key /
+    value heads follow the query heads' sharding when the mesh dims divide
+    them.  When they do not (``kv_heads`` under a model axis it does not
+    divide, so ``physical_for_dim`` dropped it), k and v stay replicated and
+    each rank passes the kernel the one kv head its query heads read (local
+    head ``h`` reads kv head ``h // G`` only within that slice); their
+    gradient is then a partial sum over those mesh dims.  If the local query
+    heads straddle two kv heads, the query heads are replicated instead."""
+    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    q, k, v = (t if isinstance(t, DTensor)
+               else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+               for t in (q, k, v))
+    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    G = H // KV
+    place = q.placements
+    bdims = [i for i, p in enumerate(place) if p == Shard(0)]
+    hdims = [i for i, p in enumerate(place) if p == Shard(2)]
+    nb = nh = 1
+    for i in bdims:
+        nb *= mesh.size(i)
+    for i in hdims:
+        nh *= mesh.size(i)
+    if B % nb:
+        bdims = []
+    sliced = bool(hdims) and H % nh == 0 and KV % nh != 0
+    if hdims and (H % nh or (sliced and G % (H // nh))):
+        hdims, sliced = [], False
+    qp = tuple(Shard(0) if i in bdims else Shard(2) if i in hdims else Replicate()
+               for i in range(mesh.ndim))
+    kp = tuple(Replicate() if sliced and p == Shard(2) else p for p in qp)
+    kgrad = tuple(Partial() if sliced and p == Shard(2) else p for p in qp)
+
+    def local(ql, kl, vl):
+        if sliced:
+            j = _coord(mesh, hdims) * (H // nh) // G
+            kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
+        return attend(ql, kl, vl)
+
+    return local_map(local, out_placements=list(qp), in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kgrad, kgrad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) -> (B, Sq, H, dh)."""
-    return FlashAttention.apply(q, k, v, causal, window, CPU_CHUNK)
+    attend = lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, CPU_CHUNK)
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _local_heads(q, k, v, attend)
+    return attend(q, k, v)
 
 
 def flash_attention_auto(q, k, v, *, causal, window, cfg):
     """Model-layer attention: the kernel on CUDA, and on the CPU the
     reference's default chunked path with its ``cfg.attn_chunk`` and
-    ``cfg.attn_accum_bf16``."""
-    return FlashAttention.apply(q, k, v, causal, window,
-                                min(cfg.attn_chunk, k.shape[1]), cfg.attn_accum_bf16)
+    ``cfg.attn_accum_bf16`` and ``cfg.attn_shard_constraints`` (the identity
+    on the local tensors a rank computes on); ``DTensor``s through
+    ``_local_heads``."""
+    chunk = min(cfg.attn_chunk, k.shape[1])
+    attend = lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, chunk,
+                                                  cfg.attn_accum_bf16,
+                                                  cfg.attn_shard_constraints)
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _local_heads(q, k, v, attend)
+    return attend(q, k, v)

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from ...sharding.rules import logical_constraint
+
 
 def _mask(q_pos, k_pos, *, causal, window):
     mask = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool,
@@ -42,12 +44,18 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
-                      chunk: int = 1024, q_offset: int = 0, accum_bf16: bool = False):
+                      chunk: int = 1024, q_offset: int = 0, accum_bf16: bool = False,
+                      shard_constrain: bool = False):
     """Online-softmax attention over KV chunks of ``chunk`` rows; never
     holds more than an (Sq, chunk) score block.  fp32 statistics and
     accumulator; fully masked rows give 0.  ``accum_bf16`` (the
     reference's ``attn_accum_bf16``) takes P.V and the accumulator in
-    bf16, as the reference's chunked path does."""
+    bf16, as the reference's chunked path does.  ``shard_constrain`` pins
+    k and v to (batch, kv_heads) under the active sharding rules, as the
+    reference pins its KV chunks."""
+    if shard_constrain:
+        k = logical_constraint(k, "batch", None, "kv_heads", None)
+        v = logical_constraint(v, "batch", None, "kv_heads", None)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV

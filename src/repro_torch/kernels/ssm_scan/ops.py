@@ -22,8 +22,13 @@ function either way.
 
 ``io_dtype`` and ``shard_constrain`` are the arguments the reference's
 rwkv6 layer gives ``ssm_scan_chunked``: q, k and v are rounded to
-``io_dtype`` before the fp32 math, and ``shard_constrain=True`` raises,
-since the port has no sharding yet (ROADMAP A12).
+``io_dtype`` before the fp32 math, and ``shard_constrain`` pins the plain
+form's chunk operands to (batch, heads) under the active sharding rules
+(the identity on the plain tensors a rank computes on).
+
+Sharded inputs (``DTensor``s) go through ``local_map``: neither the
+kernel nor ``SSMScan`` knows DTensor, so each rank runs it on its local
+batch rows and heads (``_local_heads``).
 
 Both run through ``SSMScan``, a ``torch.autograd.Function``.  Its forward
 is the dispatch above.  The reference has no backward kernel: it trains
@@ -39,6 +44,8 @@ gradient straight through, as ``jax.grad`` of an ``astype`` does.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import kernel
 from ...models.ssm import _pad_time
@@ -52,7 +59,8 @@ def _check_chunks(chunk: int, subchunk: int) -> int:
     return sub
 
 
-def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay):
+def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay,
+           shard_constrain=False):
     """The plain path (the CPU forward; the backward on either device), as
     the reference's ops: pad T up to a chunk multiple (zero k, v, g are
     inert), run the chunked form, cut y back to T."""
@@ -61,7 +69,8 @@ def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay):
     if pad:
         q, k, v, log_decay = (_pad_time(t, pad) for t in (q, k, v, log_decay))
     y, s_fin = ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
-                                chunk=chunk, subchunk=subchunk, scalar_decay=scalar_decay)
+                                chunk=chunk, subchunk=subchunk, scalar_decay=scalar_decay,
+                                shard_constrain=shard_constrain)
     return y[:, :T], s_fin
 
 
@@ -72,10 +81,10 @@ class SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, log_decay, u, initial_state, chunk: int, subchunk: int,
-                scalar_decay: bool):
+                scalar_decay: bool, shard_constrain: bool = False):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, log_decay, u, initial_state)
-        ctx.chunks = (chunk, subchunk, scalar_decay)
+        ctx.chunks = (chunk, subchunk, scalar_decay, shard_constrain)
         if q.device.type == "cuda":
             return kernel.ssm_scan_fwd(q, k, v, log_decay, u, initial_state)
         return _plain(q, k, v, log_decay, u, initial_state, *ctx.chunks)
@@ -92,7 +101,46 @@ class SSMScan(torch.autograd.Function):
             outs, grads = zip(*((o, d) for o, d in zip(outs, (dy, ds)) if d is not None))
             got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
         return (*(next(got) if t is not None and t.requires_grad else None
-                  for t in inputs), None, None, None)
+                  for t in inputs), None, None, None, None)
+
+
+def _local_heads(q, k, v, log_decay, u, initial_state, scan):
+    """``scan(q, k, v, log_decay, u, initial_state)`` on each rank's local
+    tensors through ``local_map``.  v's ``Shard(0)`` (batch) and ``Shard(2)``
+    (heads) set the layout; every other mesh dim is replicated (the scan
+    needs whole sequences).  q, k and the decay follow v; ``u`` (H, K) is cut
+    over the heads and the states (B, H, K, V) over batch and heads.  ``u``
+    has no batch dim, so its gradient is a partial sum over the batch's mesh
+    dims."""
+    ts = (q, k, v, log_decay, u, initial_state)
+    mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
+    ref = v if isinstance(v, DTensor) else next(t for t in ts if isinstance(t, DTensor))
+    B, H = v.shape[0], v.shape[2]
+
+    def mesh_dims(want, size):
+        ds = [i for i, p in enumerate(ref.placements) if p == want]
+        n = 1
+        for i in ds:
+            n *= mesh.size(i)
+        return ds if size % n == 0 else []
+
+    bdims, hdims = mesh_dims(Shard(0), B), mesh_dims(Shard(2), H)
+
+    def place(batch, head):
+        return tuple(batch if i in bdims else head if i in hdims else Replicate()
+                     for i in range(mesh.ndim))
+
+    seq, state = place(Shard(0), Shard(2)), place(Shard(0), Shard(1))
+    has_u, has_s = u is not None, initial_state is not None
+    in_place = (seq, seq, seq, seq, place(Replicate(), Shard(0)) if has_u else None,
+                state if has_s else None)
+    grad_place = in_place[:4] + (place(Partial(), Shard(0)) if has_u else None, in_place[5])
+    ts = tuple(t if t is None or isinstance(t, DTensor)
+               else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+               for t in ts)
+    return local_map(scan, out_placements=(seq, state), in_placements=in_place,
+                     in_grad_placements=grad_place, device_mesh=mesh,
+                     redistribute_inputs=True)(*ts)
 
 
 def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
@@ -103,14 +151,13 @@ def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
     ``scalar_decay``: the decay is constant over K (mamba).  Returns
     (y (B, T, H, V) in q's dtype, final state (B, H, K, V) float32)."""
     sub = _check_chunks(chunk, subchunk)
-    if shard_constrain:
-        raise NotImplementedError(
-            "ssm_scan: shard_constrain needs the port's sharding rules, "
-            "ROADMAP A12 (distribution)")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"ssm_scan: no path for device {q.device}")
     # the rounding ssm_scan_chunked does to its fp32 copies, in place of them
     q, k, v = (t.to(io_dtype).to(t.dtype)
                if torch.finfo(io_dtype).eps > torch.finfo(t.dtype).eps else t
                for t in (q, k, v))
-    return SSMScan.apply(q, k, v, log_decay, u, initial_state, chunk, sub, scalar_decay)
+    scan = lambda *ts: SSMScan.apply(*ts, chunk, sub, scalar_decay, shard_constrain)
+    if any(isinstance(t, DTensor) for t in (q, k, v, log_decay, u, initial_state)):
+        return _local_heads(q, k, v, log_decay, u, initial_state, scan)
+    return scan(q, k, v, log_decay, u, initial_state)

@@ -58,3 +58,15 @@ def unflatten(like, flat, prefix=()):
     if isinstance(like, (list, tuple)):
         return [unflatten(v, flat, prefix + (str(i),)) for i, v in enumerate(like)]
     return flat["/".join(prefix)]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure, the first tree's:
+    its dicts and lists are walked, everything else is a leaf, so the
+    other trees may hold tuples (specs, placements) at those leaves."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, list):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)

@@ -12,16 +12,29 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from ..kernels.flash_attention.ops import flash_attention_auto
 from ..kernels.flash_attention.ref import chunked_attention  # noqa: F401  (the reference's layers.chunked_attention)
+from ..sharding.rules import logical_constraint
 from .common import ArchConfig
 
 
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+class MetaInit:
+    """Stands in for the generator of an init that only wants shapes and
+    dtypes: every leaf lands on the ``meta`` device, as the reference's
+    ``jax.eval_shape(api.init, key)`` gives ``ShapeDtypeStruct``s."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, dtype, scale):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (x * scale).to(dtype)
 
@@ -130,11 +143,8 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
     ``flash_attention_auto`` for any other value.  Cross-attention (keys and
     values from ``x_kv``) has no RoPE and always takes ``full_attention``,
     as the reference's ``layers.py:205`` does.
-    ``cfg.attn_shard_constraints`` raises: the port has no sharding yet."""
-    if cfg.attn_shard_constraints:
-        raise NotImplementedError(
-            "attention_apply: attn_shard_constraints needs the port's sharding "
-            "rules, ROADMAP A12 (distribution)")
+    ``cfg.attn_shard_constraints`` pins q to (batch, heads) and k, v to
+    (batch, kv_heads) under the active sharding rules."""
     B, S = x.shape[:2]
     q, k, v = _qkv(p, x, x_kv, cfg)
     if positions is None:
@@ -142,6 +152,10 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
     if use_rope and x_kv is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attn_shard_constraints:
+        q = logical_constraint(q, "batch", None, "model", None)
+        k = logical_constraint(k, "batch", None, "kv_heads", None)
+        v = logical_constraint(v, "batch", None, "kv_heads", None)
     if cfg.attn_impl == "full" or x_kv is not None:
         out = full_attention(q, k, v, causal=causal, window=cfg.swa_window)
     else:
@@ -149,6 +163,23 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
                                    window=cfg.swa_window, cfg=cfg)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return linear(p["wo"], out), (k, v)
+
+
+def _write_at(cache, pos: int, new):
+    """``cache[:, pos] = new[:, 0]`` in place; cache (B, S_max, ...), new
+    (B, 1, ...).  A ``DTensor`` cache cut over S_max (the KV cache when its
+    heads do not divide the model axis) is written by the ranks whose shard
+    holds ``pos``, at its local row: DTensor's own indexing would write row
+    ``pos`` of every rank's shard."""
+    if not isinstance(cache, DTensor) or Shard(1) not in cache.placements:
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    new = new.to(cache.dtype).redistribute(
+        mesh, [Replicate() if p == Shard(1) else p for p in cache.placements])
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    if offset[1] <= pos < offset[1] + shape[1]:
+        cache.to_local()[:, pos - offset[1]] = new.to_local()[:, 0]
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
@@ -175,8 +206,8 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
             pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
             q = apply_rope(q, pos_arr, cfg.rope_theta)
             k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        _write_at(cache_k, pos, k_new)
+        _write_at(cache_v, pos, v_new)
         k, v = cache_k, cache_v
         kv_pos = torch.arange(k.shape[1], device=x.device)
         mask_pos = kv_pos <= pos
@@ -238,7 +269,10 @@ def chunked_xent(embed_table, x, labels, *, chunk: int):
     cnt = 0
     for start in range(0, S, chunk):
         xi, li = x[:, start:start + chunk], labels[:, start:start + chunk]
-        logits = (xi @ table.T).float()
+        # sharded, the chunk's logits are gathered over the vocab first: DTensor's
+        # gather of a vocab-sharded tensor leaves a masked partial that the
+        # indexing below cannot reduce
+        logits = logical_constraint((xi @ table.T).float(), "batch", None, None)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, li.clamp(0, V - 1).long()[..., None])[..., 0]
         valid = li >= 0

@@ -15,8 +15,10 @@ kept slots are written into the buffers directly, the dropped ones into a
 spare row past the capacity that is cut off (the reference adds zeroed
 sources at the last place; an add with accumulation took 0.7 ms a layer).
 
-The reference's sharding pins (``moe_shard_constraints``) raise: the port
-has no sharding yet (ROADMAP A12).
+``moe_shard_constraints`` pins the dispatch buffers as the reference does:
+``"expert"`` shards them over experts, ``"capacity"`` over experts and
+capacity slots (``sharding.rules.logical_constraint``, the identity with
+no rules installed).
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from ..sharding.rules import logical_constraint
 from .common import ArchConfig
 from .layers import _normal
 
@@ -55,34 +59,41 @@ def capacity(n_tokens: int, cfg: ArchConfig) -> int:
 
 def moe_apply(p, x, cfg: ArchConfig):
     """x: (B, S, D) -> (y: (B, S, D), {"moe_aux": load-balance loss,
-    "moe_drop_frac": share of (token, slot) pairs dropped})."""
-    if cfg.moe_shard_constraints:
-        raise NotImplementedError(
-            f"moe_apply: moe_shard_constraints={cfg.moe_shard_constraints!r} needs the "
-            "port's sharding rules, ROADMAP A12 (distribution)")
+    "moe_drop_frac": share of (token, slot) pairs dropped}).  Routing and
+    the scatter run under the profiler range ``moe/dispatch``, the gather
+    and the weighted sum under ``moe/combine``."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
     C = capacity(T, cfg)
-    xt = x.reshape(T, D)
+    with record_function("moe/dispatch"):
+        xt = x.reshape(T, D)
 
-    logits = xt.float() @ p["router"]["w"].float()
-    probs = torch.softmax(logits, dim=-1)                        # (T, E)
-    gate, idx = torch.topk(probs, K, dim=-1)                     # (T, K)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)  # renorm
+        logits = xt.float() @ p["router"]["w"].float()
+        probs = torch.softmax(logits, dim=-1)                        # (T, E)
+        gate, idx = torch.topk(probs, K, dim=-1)                     # (T, K)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)  # renorm
 
-    # position of each (token, slot) within its expert queue, token-major
-    expert = idx.reshape(T * K)
-    hot = (torch.arange(E, device=x.device)[:, None] == expert).to(torch.int32)  # (E, T*K)
-    pos = torch.cumsum(hot, dim=1, dtype=torch.int32).gather(0, expert[None])[0] - 1
-    keep = pos < C                                               # capacity drop
+        # position of each (token, slot) within its expert queue, token-major
+        expert = idx.reshape(T * K)
+        hot = (torch.arange(E, device=x.device)[:, None] == expert).to(torch.int32)  # (E, T*K)
+        pos = torch.cumsum(hot, dim=1, dtype=torch.int32).gather(0, expert[None])[0] - 1
+        keep = pos < C                                               # capacity drop
 
-    # scatter tokens into (E, C, D) buffers: the dropped slots into row C, cut off
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((expert, torch.where(keep, pos, C)), xt.repeat_interleave(K, dim=0))
-    buf = buf[:, :C]
-    pos_c = torch.where(keep, pos, C - 1)
+        # scatter tokens into (E, C, D) buffers: the dropped slots into row C, cut off
+        pin = {"expert": ("expert", None, None),
+               "capacity": ("expert", "batch", None)}.get(cfg.moe_shard_constraints)
+        src = xt.repeat_interleave(K, dim=0)                         # (T*K, D)
+        buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+        if pin:
+            src = logical_constraint(src, "batch", None)
+            buf = logical_constraint(buf, *pin)
+        buf = buf.index_put((expert, torch.where(keep, pos, C)), src)
+        buf = buf[:, :C]
+        if pin:
+            buf = logical_constraint(buf, *pin)
+        pos_c = torch.where(keep, pos, C - 1)
 
     # batched expert FFN: (E, C, D) x (E, D, F)
     h_in = torch.bmm(buf, p["wi"].to(x.dtype))
@@ -91,11 +102,14 @@ def moe_apply(p, x, cfg: ArchConfig):
     else:
         h = F.gelu(h_in, approximate="tanh")  # jax.nn.gelu's default
     out_buf = torch.bmm(h, p["wo"].to(x.dtype))
+    if pin:
+        out_buf = logical_constraint(out_buf, *pin)
 
-    # gather back + weighted combine over the K slots
-    gathered = out_buf[expert, pos_c]                            # (T*K, D)
-    gathered = gathered * (keep[:, None] * gate.reshape(T * K)[:, None]).to(x.dtype)
-    y = gathered.reshape(T, K, D).sum(dim=1)
+    with record_function("moe/combine"):
+        # gather back + weighted combine over the K slots
+        gathered = out_buf[expert, pos_c]                            # (T*K, D)
+        gathered = gathered * (keep[:, None] * gate.reshape(T * K)[:, None]).to(x.dtype)
+        y = gathered.reshape(T, K, D).sum(dim=1)
 
     # GShard/Switch load-balance auxiliary loss
     me = probs.mean(dim=0)                                       # (E,)

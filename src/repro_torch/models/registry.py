@@ -5,7 +5,10 @@
 MoE, hybrid (jamba: mamba2 and attention, with MoE), ``ssm`` (rwkv6),
 ``audio`` (whisper: an encoder and cross-attention; its batches carry
 ``audio_embeds``) and ``vlm`` (llava: its prefill batches carry
-``image_embeds``).
+``image_embeds``).  ``train_batch_specs``, ``prefill_batch_specs``,
+``decode_specs`` and ``input_specs`` give a cell's inputs as ``meta``
+tensors (the reference's ``ShapeDtypeStruct``s): shapes and dtypes, no
+storage.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Callable
 import torch
 
 from . import transformer as tf
-from .common import ArchConfig
+from .common import SHAPES, ArchConfig, ShapeConfig
+from .layers import MetaInit
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; ``cuda`` without a card raises."""
@@ -39,8 +43,14 @@ class ModelApi:
     prefill: Callable       # (params, batch, pad_to) -> (logits, cache, pos)
     decode: Callable        # (params, cache, token, pos) -> (logits, cache)
 
-    def make_cache(self, batch: int, max_seq: int, enc_len: int | None = None):
-        return tf.make_decode_cache(self.cfg, batch, max_seq, self.device,
+    def abstract_params(self):
+        """The parameter tree on ``meta``: every leaf's shape and dtype."""
+        return tf.init_params(MetaInit(), self.cfg)
+
+    def make_cache(self, batch: int, max_seq: int, enc_len: int | None = None,
+                   abstract: bool = False):
+        return tf.make_decode_cache(self.cfg, batch, max_seq,
+                                    "meta" if abstract else self.device,
                                     enc_len=enc_len)
 
 
@@ -63,3 +73,47 @@ def build(cfg: ArchConfig, device="cuda") -> ModelApi:
 
     return ModelApi(cfg=cfg, device=dev, init=init, loss=loss,
                     prefill=prefill, decode=decode)
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch, shape) cell: meta tensors, no allocation
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((B, S), torch.int32),
+             "labels": _meta((B, S), torch.int32)}
+    dt = getattr(torch, cfg.compute_dtype)
+    if cfg.is_encdec:
+        specs["audio_embeds"] = _meta((B, cfg.encdec.n_audio_ctx, cfg.d_model), dt)
+    if cfg.vlm is not None:
+        specs["image_embeds"] = _meta((B, cfg.vlm.n_image_tokens, cfg.vlm.patch_dim), dt)
+    return specs
+
+
+def prefill_batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    specs = train_batch_specs(cfg, shape)
+    specs.pop("labels")
+    return specs
+
+
+def decode_specs(cfg: ArchConfig, shape: ShapeConfig):
+    """(token, pos, cache) specs of one decode step: one new token against
+    a KV / state cache of ``seq_len``."""
+    B, S = shape.global_batch, shape.seq_len
+    cache = build(cfg, "meta").make_cache(B, S)
+    return _meta((B, 1), torch.int32), _meta((), torch.int32), cache
+
+
+def input_specs(cfg: ArchConfig, shape_name: str):
+    """Every input of one (arch x shape) cell."""
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return {"batch": train_batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"batch": prefill_batch_specs(cfg, shape)}
+    token, pos, cache = decode_specs(cfg, shape)
+    return {"token": token, "pos": pos, "cache": cache}

@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import logical_constraint
+
 
 def ssm_scan_ref(q, k, v, log_decay, u=None, initial_state=None):
     """Exact recurrence.  Shapes:
@@ -71,14 +73,11 @@ def ssm_scan_chunked(q, k, v, log_decay, u=None, initial_state=None,
     ``scalar_decay=True`` asserts log_decay is constant over K (mamba2's
     per-head scalar), taking the cheap (R, R) pairwise path instead of the
     per-key (R, R, K) one.  ``log_decay`` may have a last axis of 1, which
-    broadcasts over K.  ``shard_constrain`` (the reference pins the chunk
-    operands to a (batch, heads) sharding) raises: the port has no
-    sharding yet.
+    broadcasts over K.  ``shard_constrain`` pins the chunk operands to a
+    (batch, heads) sharding under the active rules, as the reference does
+    (``sharding.rules.logical_constraint``: the identity with no rules or
+    on plain tensors).
     """
-    if shard_constrain:
-        raise NotImplementedError(
-            "ssm_scan_chunked: shard_constrain needs the port's sharding rules, "
-            "ROADMAP A12 (distribution)")
     B, T, H, K = q.shape
     V = v.shape[-1]
     L = min(chunk, T)
@@ -88,7 +87,7 @@ def ssm_scan_chunked(q, k, v, log_decay, u=None, initial_state=None,
             _pad_time(q, pad), _pad_time(k, pad), _pad_time(v, pad),
             _pad_time(log_decay, pad), u=u, initial_state=initial_state,
             chunk=L, subchunk=subchunk, scalar_decay=scalar_decay,
-            io_dtype=io_dtype)
+            shard_constrain=shard_constrain, io_dtype=io_dtype)
         return y_pad[:, :T], s_fin
     S = (torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
          if initial_state is None else initial_state.float())
@@ -103,6 +102,9 @@ def ssm_scan_chunked(q, k, v, log_decay, u=None, initial_state=None,
     kf = k.to(io_dtype).reshape(B, NC, L, H, K)
     vf = v.to(io_dtype).reshape(B, NC, L, H, V)
     gf = log_decay.float().expand(B, T, H, K).reshape(B, NC, L, H, K)
+    if shard_constrain:
+        spec = ("batch", None, None, "model", None)
+        qf, kf, vf, gf = (logical_constraint(t, *spec) for t in (qf, kf, vf, gf))
     uf = None if u is None else u.float()
 
     dev = q.device

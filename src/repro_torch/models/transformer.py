@@ -28,7 +28,9 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ssm_scan import ops as ssm_ops
+from ..sharding.rules import logical_constraint
 from .common import ArchConfig
+from .convert import tree_map
 from .layers import (_normal, attention_apply, attention_decode,
                      attention_init, chunked_xent, linear, linear_init,
                      mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
@@ -39,18 +41,9 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _tree_map(fn, *trees):
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, list):
-        return [_tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
-
-
 def _index(tree, i):
     """Block ``i`` of the stacked blocks (views, no copy)."""
-    return _tree_map(lambda x: x[i], tree)
+    return tree_map(lambda x: x[i], tree)
 
 
 # ===========================================================================
@@ -114,6 +107,7 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None):
     z = linear(p["wz"], x)
     conv_state_in = None if state is None else state[1]
     xc = F.silu(_causal_conv(xz, p["conv_w"].to(x.dtype), conv_state_in))
+    xc = logical_constraint(xc, "batch", None, "model")
     Bt = linear(p["wB"], x)                          # (B, S, K)
     Ct = linear(p["wC"], x)                          # (B, S, K)
     dt = F.softplus(linear(p["wdt"], x).float() + p["dt_bias"])  # (B, S, H)
@@ -223,6 +217,10 @@ def rwkv_time_mix(p, x, cfg: ArchConfig, state=None):
     k = linear(p["wk"], _mix(x, xs, p["mu_k"])).reshape(B, S, H, dh)
     v = linear(p["wv"], _mix(x, xs, p["mu_v"])).reshape(B, S, H, dh)
     gate = F.silu(linear(p["wg"], _mix(x, xs, p["mu_g"])))
+    if cfg.ssm_shard_constraints:
+        # keep head-sharded activations head-sharded through the mixer
+        r, k, v = (logical_constraint(t, "batch", None, "model", None) for t in (r, k, v))
+        gate = logical_constraint(gate, "batch", None, "model")
     log_w = _log_decay(p, x, xs).reshape(B, S, H, dh)
     ssm_in = None if state is None else state[0]
     y, ssm_state = ssm_ops.ssm_scan(r, k, v, log_w, u=p["u"], initial_state=ssm_in,
@@ -267,10 +265,12 @@ def cmix_init(gen: torch.Generator, cfg: ArchConfig, dtype):
 
 def cmix_apply(p, x, cfg: ArchConfig, state=None):
     """rwkv channel mix; returns (y, last x).  ``state``: (B, 1, d) or None.
-    (The reference pins the hidden's sharding under ``ssm_shard_constraints``;
-    the time mix before it refuses that toggle, ROADMAP A12.)"""
+    Under ``ssm_shard_constraints`` the (B, S, d_ff) hidden stays sharded
+    over "model", as the reference pins it."""
     xs = _token_shift(x, state)
     kk = torch.square(F.relu(linear(p["wk"], _mix(x, xs, p["mu_k"]))))
+    if cfg.ssm_shard_constraints:
+        kk = logical_constraint(kk, "batch", None, "model")
     rr = torch.sigmoid(linear(p["wr"], _mix(x, xs, p["mu_r"])))
     return rr * linear(p["wv"], kk), x[:, -1:, :]
 
@@ -345,7 +345,7 @@ def block_apply(bp, x, cfg: ArchConfig, *, causal=True, enc_out=None, collect_ca
             aux = aux + moe_aux["moe_aux"]
         else:
             out, kept["shift_c"] = cmix_apply(layer["cmix"], h, cfg)
-        x = x + out
+        x = logical_constraint(x + out, "batch", None, None)
         if collect_cache:
             for key, t in kept.items():
                 cache[key].append(t)
@@ -420,14 +420,14 @@ def init_params(gen: torch.Generator, cfg: ArchConfig):
     }
     blocks = [block_init(gen, cfg, dtype, cross_attention=cfg.is_encdec)
               for _ in range(cfg.n_blocks)]
-    params["blocks"] = _tree_map(lambda *xs: torch.stack(xs), *blocks)
+    params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
     del blocks
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                         dtype, scale=scale)
     if cfg.is_encdec:
         enc = [block_init(gen, cfg, dtype) for _ in range(cfg.encdec.n_encoder_layers)]
-        params["enc_blocks"] = _tree_map(lambda *xs: torch.stack(xs), *enc)
+        params["enc_blocks"] = tree_map(lambda *xs: torch.stack(xs), *enc)
         del enc
         params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
     if cfg.vlm is not None:
@@ -447,7 +447,7 @@ def _embed(params, tokens, cfg: ArchConfig, batch=None):
             raise ValueError(f"_embed: a prompt of {S} tokens is shorter than its "
                              f"{n_img} image positions")
         x = torch.cat([img, x[:, n_img:]], dim=1)
-    return x
+    return logical_constraint(x, "batch", None, None)
 
 
 def _run_block(bp, x, cfg: ArchConfig, remat: bool, **kw):

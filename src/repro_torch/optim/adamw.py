@@ -50,8 +50,11 @@ def clip_by_global_norm(tree, max_norm: float):
 
 
 def adamw_init(params, cfg: OptimizerConfig):
+    """Zero moments in ``cfg.state_dtype``, each in its parameter's layout
+    (a ``DTensor`` parameter's moments take its placements), and a step
+    counter beside the first parameter."""
     dt = getattr(torch, cfg.state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
     device = next(iter(flatten(params).values())).device
     return {"m": _map(zeros, params), "v": _map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -3,6 +3,9 @@
 ``train_step`` is the (state, batch) -> (state, metrics) update: loss,
 gradients, global-norm clip, AdamW.  PyTorch runs eagerly, so there is no
 compile step, and the state is updated in place (``optim/adamw.py``).
+The steps take ``DTensor`` params as they take plain ones (``launch/cells.py``
+runs them under a cell's sharding rules): each gradient comes back in its
+parameter's placements, so AdamW updates every shard where it lies.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.convert import flatten, unflatten
 from ..models.registry import ModelApi
@@ -26,13 +30,23 @@ def make_train_state(api: ModelApi, opt_cfg: OptimizerConfig,
     return {"params": params, "opt": adamw_init(params, opt_cfg)}
 
 
+def abstract_train_state(api: ModelApi, opt_cfg: OptimizerConfig):
+    """The train state's tree on ``meta``: shapes and dtypes only."""
+    params = api.abstract_params()
+    return {"params": params, "opt": adamw_init(params, opt_cfg)}
+
+
 def value_and_grad(api: ModelApi, params, batch):
     """(loss, metrics, grads) of ``api.loss`` at ``params``; grads have the
-    structure and dtypes of ``params``.  ``params`` themselves record no
+    structure and dtypes of ``params``, and a ``DTensor`` parameter's its
+    placements: autograd gives a gradient partial over the mesh dims that
+    shard the batch, which is reduced here.  ``params`` themselves record no
     graph: autograd runs on detached aliases of them."""
     leaves = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
     loss, metrics = api.loss(unflatten(params, leaves), batch)
     grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+             for p, g in zip(leaves.values(), grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten(params, dict(zip(leaves, grads)))
 
@@ -46,7 +60,7 @@ def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig,
             else:
                 # gradient accumulation over microbatches (leading split),
                 # summed in fp32 as the reference's scan does
-                grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                grads = {k: torch.zeros_like(p, dtype=torch.float32)
                          for k, p in flatten(state["params"]).items()}
                 loss = 0.0
                 for i in range(accum_steps):

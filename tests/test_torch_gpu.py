@@ -467,3 +467,87 @@ def test_hybrid_prefill_runs_scan_per_mamba_layer_and_flash_per_attention_layer(
     assert ssm_kernel.launches == before + n_mamba
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(logits_d, want_d, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    """A (1, 1) ("data", "model") CUDA mesh over a one-rank NCCL group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_test_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _on_mesh(mesh, t, placed, heads_dim=2, batch=True):
+    """``t`` as a DTensor on the one-rank mesh: replicated, or cut as a
+    sharded run cuts it (batch over "data", heads over "model"; on one rank
+    each shard is the whole tensor)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    place = ([Replicate(), Replicate()] if placed == "replicate"
+             else [Shard(0) if batch else Replicate(), Shard(heads_dim)])
+    return DTensor.from_local(t, mesh, place, run_check=False)
+
+
+@pytest.mark.parametrize("placed", ["replicate", "shard"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"], ids=["tma", "f32"])
+def test_flash_through_local_map_matches_direct_call(cuda, mesh1, dtype, placed):
+    """Sharded q, k, v go through ``local_map``: one kernel launch on the
+    path the direct call takes, its output a DTensor in q's placements and
+    bit for bit the direct call's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    case = FLASH_CASES[-1]
+    *_, causal, window = case
+    q, k, v = (t.to(getattr(torch, dtype)) for t in _flash_inputs(case, cuda))
+    want = flash_attention(q, k, v, causal=causal, window=window)
+    counts = (fa_kernel.launches, fa_kernel.tma_launches, fa_kernel.f32_launches)
+    got = flash_attention(*(_on_mesh(mesh1, t, placed) for t in (q, k, v)),
+                          causal=causal, window=window)
+    torch.cuda.synchronize()
+    path = 1 if dtype == "bfloat16" else 2
+    after = (fa_kernel.launches, fa_kernel.tma_launches, fa_kernel.f32_launches)
+    assert after[0] == counts[0] + 1 and after[path] == counts[path] + 1
+    assert isinstance(got, DTensor)
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("placed", ["replicate", "shard"])
+@pytest.mark.parametrize("layout", ["rwkv", "mamba"])
+def test_ssm_scan_through_local_map_matches_direct_call(cuda, mesh1, layout, placed):
+    """The scan on sharded inputs goes through ``local_map``: one kernel
+    launch, y and the final state DTensors bit for bit the direct call's, in
+    rwkv6's layout (bonus u, an initial state) and in mamba's (q and k
+    expanded over the heads, one decay per head, read through strides)."""
+    from torch.distributed.tensor import DTensor
+    B, T, H, K, V = 2, 70, 4, 64, 64
+    gen = torch.Generator(cuda).manual_seed(7)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda) * 0.5
+    v, s0 = rand(B, T, H, V).bfloat16(), rand(B, H, K, V)
+    if layout == "rwkv":
+        q, k = rand(B, T, H, K).bfloat16(), rand(B, T, H, K).bfloat16()
+        g, u, kw = -torch.exp(rand(B, T, H, K) - 1.5), rand(H, K), {}
+    else:
+        q = rand(B, T, K).bfloat16()[:, :, None].expand(B, T, H, K)
+        k = rand(B, T, K).bfloat16()[:, :, None].expand(B, T, H, K)
+        g, u, kw = -torch.exp(rand(B, T, H, 1) - 1.5), None, {"scalar_decay": True}
+    want_y, want_s = ssm_scan(q, k, v, g, u, s0, chunk=16, subchunk=8, **kw)
+    before = ssm_kernel.launches
+    dt = [_on_mesh(mesh1, t, placed) for t in (q, k, v, g)]
+    du = None if u is None else _on_mesh(mesh1, u, placed, heads_dim=0, batch=False)
+    ds0 = _on_mesh(mesh1, s0, placed, heads_dim=1)
+    y, s = ssm_scan(*dt, du, ds0, chunk=16, subchunk=8, **kw)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    assert isinstance(y, DTensor) and isinstance(s, DTensor)
+    assert torch.equal(y.to_local(), want_y) and torch.equal(s.to_local(), want_s)

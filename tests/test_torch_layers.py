@@ -166,15 +166,20 @@ def test_attn_accum_bf16_raises_off_the_cpu():
         flash_attention_auto(q, k, v, causal=True, window=None, cfg=tcfg)
 
 
-def test_attn_shard_constraints_raises():
-    """The reference pins q, k, v to a sharding; the port has none yet
-    (A12), so the toggle raises instead of being ignored."""
-    _, tcfg = _cfgs(attn_shard_constraints=True)
-    jcfg = _cfgs()[0]
+@pytest.mark.parametrize("impl", ["chunked", "full"])
+def test_attn_shard_constraints_match_jax(impl):
+    """``attn_shard_constraints`` pins q, k, v (and the chunked path's k, v)
+    under the active sharding rules; with none installed the pins are the
+    identity in both packages, so the toggled layer equals JAX's toggled
+    layer (a 2x2 mesh's pins are in tests/test_torch_cells.py)."""
+    jcfg, tcfg = _cfgs(attn_shard_constraints=True, attn_impl=impl)
     p = jl.attention_init(jax.random.PRNGKey(7), jcfg, jnp.float32)
-    x = torch.from_numpy(_x((1, 8, jcfg.d_model), 12))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tl.attention_apply(_params(p), x, tcfg)
+    x = _x((2, 24, jcfg.d_model), 12)
+    out, (k, v) = tl.attention_apply(_params(p), torch.from_numpy(x), tcfg)
+    jout, (jk, jv) = jl.attention_apply(p, jnp.asarray(x), jcfg)
+    _close(out, jout, rtol=1e-4, atol=1e-4)
+    _close(k, jk, rtol=1e-4, atol=1e-4)
+    _close(v, jv, rtol=1e-4, atol=1e-4)
 
 
 def test_remat_dots_raises():

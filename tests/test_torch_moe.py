@@ -149,11 +149,13 @@ def test_moe_grads_match_jax():
 
 
 @pytest.mark.parametrize("pin", ["expert", "capacity"])
-def test_moe_shard_constraints_raise(pin):
-    """The reference's dispatch-buffer pins need the port's sharding rules
-    (ROADMAP A12); the port refuses them rather than ignore them."""
-    jcfg, tcfg = mk_cfgs()
-    p, x = _setup(jcfg, (1, 4, jcfg.d_model))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmoe.moe_apply(params_from_jax(jax.tree.map(np.asarray, p), "cpu"),
-                       torch.from_numpy(x), dataclasses.replace(tcfg, moe_shard_constraints=pin))
+def test_moe_shard_constraints_match_jax(pin):
+    """The dispatch-buffer pins, with no sharding rules installed, are the
+    identity in both packages: the pinned layer equals JAX's pinned layer,
+    drops included (capacity factor 0.75).  Under a 2x2 mesh they are held
+    to the unsharded port in tests/test_torch_cells.py."""
+    jcfg, tcfg = mk_cfgs(cf=0.75)
+    jcfg, tcfg = (dataclasses.replace(c, moe_shard_constraints=pin) for c in (jcfg, tcfg))
+    p, x = _setup(jcfg, (2, 16, jcfg.d_model), seed=8)
+    _, aux = _both(p, x, jcfg, tcfg)
+    assert float(aux["moe_drop_frac"]) > 0

@@ -238,21 +238,33 @@ def test_ssm_scan_cpu_path_is_differentiable():
         _close(got, want.numpy(), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("where", ["chunked", "op", "model"])
-def test_ssm_shard_constrain_raises(where):
-    """The reference's sharding pin has no port yet: the plain function, the
-    op and an rwkv6 model with ``ssm_shard_constraints`` refuse it (A12)."""
-    q, k, v, g, _, _ = _inputs(1, 8, 1, 8, 8, seed=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        if where == "chunked":
-            ssm_scan_chunked(*_t(q, k, v, g), shard_constrain=True)
-        elif where == "op":
-            ssm_scan(*_t(q, k, v, g), chunk=8, shard_constrain=True)
-        else:
-            cfg = dataclasses.replace(_rwkv_cfgs()[1], ssm_shard_constraints=True)
-            api = build(cfg, "cpu")
-            params = api.init(torch.Generator().manual_seed(0))
-            api.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+@pytest.mark.parametrize("where", ["chunked", "op", "model", "mamba"])
+def test_ssm_shard_constrain_matches_jax(where):
+    """The reference's (batch, heads) pins, with no sharding rules
+    installed, are the identity in both packages: the plain function, the op
+    and rwkv6 / jamba models with ``ssm_shard_constraints`` equal JAX's with
+    the same toggle.  Under a 2x2 mesh they are held to the unsharded port
+    in tests/test_torch_cells.py."""
+    q, k, v, g, s0, u = _inputs(2, 40, 2, 8, 8, seed=2)
+    if where in ("chunked", "op"):
+        fn = ssm_scan_chunked if where == "chunked" else ssm_scan
+        y, s = fn(*_t(q, k, v, g), u=torch.from_numpy(u), initial_state=torch.from_numpy(s0),
+                  chunk=8, subchunk=4, shard_constrain=True)
+        jy, js = jssm.ssm_scan_chunked(*_j(q, k, v, g), u=jnp.asarray(u),
+                                       initial_state=jnp.asarray(s0), chunk=8, subchunk=4,
+                                       shard_constrain=True)
+        _close(y, jy)
+        _close(s, js)
+        return
+    arch = "rwkv6-7b" if where == "model" else "jamba-1.5-large-398b"
+    jcfg, tcfg = (c.scaled_down(ssm_shard_constraints=True)
+                  for c in (jax_get_config(arch), get_config(arch)))
+    from repro.models.registry import build as jax_build
+    p = jax_build(jcfg).init(jax.random.PRNGKey(3))
+    tokens = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
+    logits, _, _ = build(tcfg, "cpu").prefill(_params(p), {"tokens": torch.from_numpy(tokens)})
+    jlogits, _, _ = jax_build(jcfg).prefill(p, {"tokens": jnp.asarray(tokens)})
+    _close(logits, jlogits, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("use_u", [False, True], ids=["inclusive", "bonus"])

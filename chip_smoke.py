@@ -173,7 +173,8 @@ MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
               (2, 2048, 2048, 32, 8, 120, True, 4096),  # the training step's
               (4, 512, 512, 16, 8, 64, True, None),  # granite-moe's 4 x 512 prefill
               (4, 1500, 1500, 16, 16, 64, False, None),  # whisper's encoder at 4 requests
-              (4, 2048, 2048, 32, 8, 128, True, 4096)]  # llava's 4 x 2048 prefill
+              (4, 2048, 2048, 32, 8, 128, True, 4096),  # llava's 4 x 2048 prefill
+              (2, 2048, 2048, 16, 8, 64, True, None)]  # granite-moe's training step
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.py
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
@@ -918,11 +919,10 @@ def plain_scan(ssm_ops, ssm_ref):
     """The plain chunked scan in place of ``ops.ssm_scan`` for the block, as
     a test's monkeypatch would swap it in."""
     def scan(q, k, v, log_decay, u=None, initial_state=None, *, chunk, subchunk, io_dtype,
-             shard_constrain, scalar_decay=False):
+             scalar_decay=False):
         return ssm_ref.ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
                                         chunk=chunk, subchunk=min(subchunk, chunk),
-                                        scalar_decay=scalar_decay, io_dtype=io_dtype,
-                                        shard_constrain=shard_constrain)
+                                        scalar_decay=scalar_decay, io_dtype=io_dtype)
 
     kernel_scan, ssm_ops.ssm_scan = ssm_ops.ssm_scan, scan
     try:

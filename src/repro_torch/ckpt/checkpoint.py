@@ -246,9 +246,10 @@ def restore_checkpoint(abstract_state, connector: Connector, base: str,
     dtype and lands on its abstract leaf's device (the CPU for ``meta``).
     With ``shardings`` (a tree of the same structure whose leaves have a
     ``mesh`` and ``placements``: ``launch.cells.Sharding``), each rank reads
-    the full leaf onto the mesh's device, verifies its digest there, and
-    keeps its shard as a ``DTensor``, on a mesh that may differ from the
-    saver's (elastic restart).  Returns (state, step)."""
+    one full leaf at a time onto the mesh's device, verifies its digest
+    there, and keeps a copy of its shard as a ``DTensor``, on a mesh that may
+    differ from the saver's (elastic restart): a rank holds one full leaf
+    beside its shards, never the unsharded state.  Returns (state, step)."""
     session = connector.start(credential)
     try:
         if step is None:
@@ -275,25 +276,37 @@ def restore_checkpoint(abstract_state, connector: Connector, base: str,
                 raise NotFound(f"checkpoint object for {path}")
             return _to_device(data, dev), meta
 
+        def check(paths, leaves):
+            if verify:
+                u8s = [leaves[p][0] for p in paths]
+                for path, dig in zip(paths, _digests([u.device for u in u8s], u8s.__getitem__)):
+                    if dig != leaves[path][1]["checksum"]:
+                        raise IntegrityError(f"checksum mismatch restoring {path}")
+
+        def typed(u8, meta):
+            return u8.view(torch_dtype(meta["dtype"])).reshape(meta["shape"])
+
         placed = {p: sh for p, sh in flatten(shardings or {}).items() if sh is not None}
-        loaded = {}
+        restored, loaded = {}, {}
         for path, spec in flatten(abstract_state).items():
-            if path in placed:
-                dev = _mesh_device(placed[path].mesh)
-            else:
+            if path not in placed:
                 dev = torch.device("cpu") if spec.device.type == "meta" else spec.device
-            loaded[path] = load(path, dev)
-        if verify:
-            u8s = [u8 for u8, _ in loaded.values()]
-            for path, dig in zip(loaded, _digests([u.device for u in u8s], u8s.__getitem__)):
-                if dig != loaded[path][1]["checksum"]:
-                    raise IntegrityError(f"checksum mismatch restoring {path}")
-        restored = {path: u8.view(torch_dtype(meta["dtype"])).reshape(meta["shape"])
-                    for path, (u8, meta) in loaded.items()}
-        for path, sh in placed.items():
-            # every rank read the same leaf: each keeps its shard, nothing sent
-            restored[path] = distribute_tensor(restored[path], sh.mesh, sh.placements,
-                                               src_data_rank=None)
+                loaded[path] = load(path, dev)
+                continue
+            # one full leaf at a time: every rank reads and verifies it, keeps
+            # a copy of its shard (a view would keep the full leaf alive) and
+            # drops the leaf before the next; nothing is sent
+            sh = placed[path]
+            leaf = {path: load(path, _mesh_device(sh.mesh))}
+            check([path], leaf)
+            full = distribute_tensor(typed(*leaf.pop(path)), sh.mesh, sh.placements,
+                                     src_data_rank=None)
+            restored[path] = DTensor.from_local(full.to_local().clone(), sh.mesh,
+                                                sh.placements, run_check=False,
+                                                shape=full.shape, stride=full.stride())
+            del full
+        check(list(loaded), loaded)
+        restored.update((path, typed(*lm)) for path, lm in loaded.items())
         return unflatten(abstract_state, restored), step
     finally:
         connector.destroy(session)

@@ -28,17 +28,18 @@ the CPU, on its local batch rows and heads (``_local_heads``).
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from . import kernel
+from ...sharding.rules import layout, lift, shard_dims
 from .ref import chunked_attention
 
 #: KV chunk of the CPU path of ``flash_attention`` (the TPU kernel's block)
 CPU_CHUNK = 128
 
 
-def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False, shard_constrain=False):
+def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
     if accum_bf16 and q.device.type != "cpu":
         raise NotImplementedError(
             "flash_attention: attn_accum_bf16 has no Hopper kernel; the kernel "
@@ -47,7 +48,7 @@ def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False, shard_constra
         return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
-                                 accum_bf16=accum_bf16, shard_constrain=shard_constrain)
+                                 accum_bf16=accum_bf16)
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 
@@ -57,10 +58,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, chunk: int,
-                accum_bf16: bool = False, shard_constrain: bool = False):
+                accum_bf16: bool = False):
         ctx.save_for_backward(q, k, v)
-        ctx.attn = dict(causal=causal, window=window, chunk=chunk, accum_bf16=accum_bf16,
-                        shard_constrain=shard_constrain)
+        ctx.attn = dict(causal=causal, window=window, chunk=chunk, accum_bf16=accum_bf16)
         return _dispatch(q, k, v, **ctx.attn)
 
     @staticmethod
@@ -72,7 +72,7 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
         # contiguous, as a sharded caller's reshape of them needs (DTensor views
         # its local shards and cannot copy; a plain reshape would copy anyway)
-        return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None, None, None
+        return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None, None
 
 
 def _coord(mesh, dims) -> int:
@@ -96,29 +96,17 @@ def _local_heads(q, k, v, attend):
     head ``h`` reads kv head ``h // G`` only within that slice); their
     gradient is then a partial sum over those mesh dims.  If the local query
     heads straddle two kv heads, the query heads are replicated instead."""
-    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
-    q, k, v = (t if isinstance(t, DTensor)
-               else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-               for t in (q, k, v))
-    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    mesh, (q, k, v) = lift(q, k, v)
+    H, KV = q.shape[2], k.shape[2]
     G = H // KV
-    place = q.placements
-    bdims = [i for i, p in enumerate(place) if p == Shard(0)]
-    hdims = [i for i, p in enumerate(place) if p == Shard(2)]
-    nb = nh = 1
-    for i in bdims:
-        nb *= mesh.size(i)
-    for i in hdims:
-        nh *= mesh.size(i)
-    if B % nb:
-        bdims = []
-    sliced = bool(hdims) and H % nh == 0 and KV % nh != 0
-    if hdims and (H % nh or (sliced and G % (H // nh))):
+    bdims, _ = shard_dims(q, 0)
+    hdims, nh = shard_dims(q, 2)
+    sliced = bool(hdims) and KV % nh != 0
+    if sliced and G % (H // nh):
         hdims, sliced = [], False
-    qp = tuple(Shard(0) if i in bdims else Shard(2) if i in hdims else Replicate()
-               for i in range(mesh.ndim))
-    kp = tuple(Replicate() if sliced and p == Shard(2) else p for p in qp)
-    kgrad = tuple(Partial() if sliced and p == Shard(2) else p for p in qp)
+    qp = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Shard(2)))
+    kp = layout(mesh.ndim, (bdims, Shard(0)), ([] if sliced else hdims, Shard(2)))
+    kgrad = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Partial() if sliced else Shard(2)))
 
     def local(ql, kl, vl):
         if sliced:
@@ -142,13 +130,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
 def flash_attention_auto(q, k, v, *, causal, window, cfg):
     """Model-layer attention: the kernel on CUDA, and on the CPU the
     reference's default chunked path with its ``cfg.attn_chunk`` and
-    ``cfg.attn_accum_bf16`` and ``cfg.attn_shard_constraints`` (the identity
-    on the local tensors a rank computes on); ``DTensor``s through
-    ``_local_heads``."""
+    ``cfg.attn_accum_bf16``; ``DTensor``s through ``_local_heads``.  The
+    reference's ``attn_shard_constraints`` pin of the KV chunks has no
+    counterpart here: the layer pins k and v before this call, and a rank
+    computes on its local tensors, where a pin is the identity."""
     chunk = min(cfg.attn_chunk, k.shape[1])
     attend = lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, chunk,
-                                                  cfg.attn_accum_bf16,
-                                                  cfg.attn_shard_constraints)
+                                                  cfg.attn_accum_bf16)
     if any(isinstance(t, DTensor) for t in (q, k, v)):
         return _local_heads(q, k, v, attend)
     return attend(q, k, v)

@@ -20,11 +20,12 @@ reference's ``ssm_scan_chunked`` takes it: the plain path then forms the
 row and sub-chunk at jamba's width).  The kernel computes the same
 function either way.
 
-``io_dtype`` and ``shard_constrain`` are the arguments the reference's
-rwkv6 layer gives ``ssm_scan_chunked``: q, k and v are rounded to
-``io_dtype`` before the fp32 math, and ``shard_constrain`` pins the plain
-form's chunk operands to (batch, heads) under the active sharding rules
-(the identity on the plain tensors a rank computes on).
+``io_dtype`` is the argument the reference's rwkv6 layer gives
+``ssm_scan_chunked``: q, k and v are rounded to it before the fp32 math.
+Its other one, ``shard_constrain``, pins the chunk operands to (batch,
+heads); it has no counterpart here, as a rank computes on its local
+tensors, where a pin is the identity, and the layer pins the operands
+before this call.
 
 Sharded inputs (``DTensor``s) go through ``local_map``: neither the
 kernel nor ``SSMScan`` knows DTensor, so each rank runs it on its local
@@ -49,6 +50,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from . import kernel
 from ...models.ssm import _pad_time
+from ...sharding.rules import layout, lift, shard_dims
 from .ref import ssm_scan_chunked
 
 
@@ -59,8 +61,7 @@ def _check_chunks(chunk: int, subchunk: int) -> int:
     return sub
 
 
-def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay,
-           shard_constrain=False):
+def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay):
     """The plain path (the CPU forward; the backward on either device), as
     the reference's ops: pad T up to a chunk multiple (zero k, v, g are
     inert), run the chunked form, cut y back to T."""
@@ -69,8 +70,7 @@ def _plain(q, k, v, log_decay, u, initial_state, chunk, subchunk, scalar_decay,
     if pad:
         q, k, v, log_decay = (_pad_time(t, pad) for t in (q, k, v, log_decay))
     y, s_fin = ssm_scan_chunked(q, k, v, log_decay, u=u, initial_state=initial_state,
-                                chunk=chunk, subchunk=subchunk, scalar_decay=scalar_decay,
-                                shard_constrain=shard_constrain)
+                                chunk=chunk, subchunk=subchunk, scalar_decay=scalar_decay)
     return y[:, :T], s_fin
 
 
@@ -81,10 +81,10 @@ class SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, log_decay, u, initial_state, chunk: int, subchunk: int,
-                scalar_decay: bool, shard_constrain: bool = False):
+                scalar_decay: bool):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, log_decay, u, initial_state)
-        ctx.chunks = (chunk, subchunk, scalar_decay, shard_constrain)
+        ctx.chunks = (chunk, subchunk, scalar_decay)
         if q.device.type == "cuda":
             return kernel.ssm_scan_fwd(q, k, v, log_decay, u, initial_state)
         return _plain(q, k, v, log_decay, u, initial_state, *ctx.chunks)
@@ -101,7 +101,7 @@ class SSMScan(torch.autograd.Function):
             outs, grads = zip(*((o, d) for o, d in zip(outs, (dy, ds)) if d is not None))
             got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
         return (*(next(got) if t is not None and t.requires_grad else None
-                  for t in inputs), None, None, None, None)
+                  for t in inputs), None, None, None)
 
 
 def _local_heads(q, k, v, log_decay, u, initial_state, scan):
@@ -112,32 +112,18 @@ def _local_heads(q, k, v, log_decay, u, initial_state, scan):
     over the heads and the states (B, H, K, V) over batch and heads.  ``u``
     has no batch dim, so its gradient is a partial sum over the batch's mesh
     dims."""
-    ts = (q, k, v, log_decay, u, initial_state)
-    mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
-    ref = v if isinstance(v, DTensor) else next(t for t in ts if isinstance(t, DTensor))
-    B, H = v.shape[0], v.shape[2]
-
-    def mesh_dims(want, size):
-        ds = [i for i, p in enumerate(ref.placements) if p == want]
-        n = 1
-        for i in ds:
-            n *= mesh.size(i)
-        return ds if size % n == 0 else []
-
-    bdims, hdims = mesh_dims(Shard(0), B), mesh_dims(Shard(2), H)
+    ref = next(t for t in (v, q, k, log_decay, u, initial_state) if isinstance(t, DTensor))
+    (bdims, _), (hdims, _) = shard_dims(ref, 0), shard_dims(ref, 2)
+    mesh, ts = lift(q, k, v, log_decay, u, initial_state)
 
     def place(batch, head):
-        return tuple(batch if i in bdims else head if i in hdims else Replicate()
-                     for i in range(mesh.ndim))
+        return layout(mesh.ndim, (bdims, batch), (hdims, head))
 
     seq, state = place(Shard(0), Shard(2)), place(Shard(0), Shard(1))
     has_u, has_s = u is not None, initial_state is not None
     in_place = (seq, seq, seq, seq, place(Replicate(), Shard(0)) if has_u else None,
                 state if has_s else None)
     grad_place = in_place[:4] + (place(Partial(), Shard(0)) if has_u else None, in_place[5])
-    ts = tuple(t if t is None or isinstance(t, DTensor)
-               else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-               for t in ts)
     return local_map(scan, out_placements=(seq, state), in_placements=in_place,
                      in_grad_placements=grad_place, device_mesh=mesh,
                      redistribute_inputs=True)(*ts)
@@ -145,7 +131,7 @@ def _local_heads(q, k, v, log_decay, u, initial_state, scan):
 
 def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
              chunk: int = 128, subchunk: int = 16, scalar_decay: bool = False,
-             io_dtype=torch.float32, shard_constrain: bool = False):
+             io_dtype=torch.float32):
     """q, k: (B, T, H, K); log_decay: (B, T, H, K) or (B, T, H, 1); v:
     (B, T, H, V); u: (H, K) or None; initial_state: (B, H, K, V) or None.
     ``scalar_decay``: the decay is constant over K (mamba).  Returns
@@ -157,7 +143,7 @@ def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
     q, k, v = (t.to(io_dtype).to(t.dtype)
                if torch.finfo(io_dtype).eps > torch.finfo(t.dtype).eps else t
                for t in (q, k, v))
-    scan = lambda *ts: SSMScan.apply(*ts, chunk, sub, scalar_decay, shard_constrain)
+    scan = lambda *ts: SSMScan.apply(*ts, chunk, sub, scalar_decay)
     if any(isinstance(t, DTensor) for t in (q, k, v, log_decay, u, initial_state)):
         return _local_heads(q, k, v, log_decay, u, initial_state, scan)
     return scan(q, k, v, log_decay, u, initial_state)

@@ -118,7 +118,6 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None):
     y, ssm_state = ssm_ops.ssm_scan(q, k, v, g, initial_state=None if state is None else state[0],
                                     chunk=min(s.chunk, S), subchunk=min(s.subchunk, S),
                                     scalar_decay=True,
-                                    shard_constrain=cfg.ssm_shard_constraints,
                                     io_dtype=torch.bfloat16 if cfg.ssm_bf16_io
                                     else torch.float32)
     y = y + p["D"].to(x.dtype)[None, None, :, None] * xc.reshape(B, S, H, dh)
@@ -226,7 +225,6 @@ def rwkv_time_mix(p, x, cfg: ArchConfig, state=None):
     y, ssm_state = ssm_ops.ssm_scan(r, k, v, log_w, u=p["u"], initial_state=ssm_in,
                                     chunk=min(cfg.ssm.chunk, S),
                                     subchunk=min(cfg.ssm.subchunk, S),
-                                    shard_constrain=cfg.ssm_shard_constraints,
                                     io_dtype=torch.bfloat16 if cfg.ssm_bf16_io
                                     else torch.float32)
     y = y.reshape(B, S, d)

@@ -22,6 +22,7 @@ runs eagerly, so that redistribution is the collective itself.
 from __future__ import annotations
 
 import fnmatch
+import math
 import threading
 from contextlib import contextmanager
 
@@ -157,6 +158,39 @@ def logical_constraint(x, *logical_axes):
         if n % prod:
             return x
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# kernel boundaries: the layout a ``local_map`` around a kernel runs in
+# ---------------------------------------------------------------------------
+def lift(*tensors):
+    """(mesh, tensors): the mesh of the first ``DTensor`` among
+    ``tensors``, and the tensors with each plain one made a replicated
+    ``DTensor`` on it (every rank holds it whole); ``None`` stays ``None``."""
+    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    rep = [Replicate()] * mesh.ndim
+    return mesh, tuple(t if t is None or isinstance(t, DTensor)
+                       else DTensor.from_local(t, mesh, rep, run_check=False)
+                       for t in tensors)
+
+
+def shard_dims(x, dim: int) -> tuple[list[int], int]:
+    """(mesh dims, their product): the mesh dims on which ``DTensor`` ``x``
+    is ``Shard(dim)``, or none (product 1) when their product does not
+    divide ``x``'s size there, as a kernel needs whole, even pieces."""
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    n = math.prod(x.device_mesh.size(i) for i in dims)
+    return (dims, n) if x.shape[dim] % n == 0 else ([], 1)
+
+
+def layout(ndim: int, *pieces) -> tuple:
+    """Placements for ``ndim`` mesh dims: each ``(mesh dims, placement)``
+    of ``pieces`` on its dims, ``Replicate()`` on every other."""
+    out = [Replicate()] * ndim
+    for dims, placement in pieces:
+        for i in dims:
+            out[i] = placement
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

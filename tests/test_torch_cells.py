@@ -23,6 +23,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import weakref
 
 import pytest
 
@@ -35,6 +36,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,  # noqa: E402
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication  # noqa: E402
 
+from repro_torch.ckpt import checkpoint as ckpt_module  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.connectors.posix import PosixConnector  # noqa: E402
@@ -306,13 +308,33 @@ def _ckpt_cases(mesh, tmp):
     if dist.get_rank() == 0:
         save_checkpoint(state, PosixConnector(plain_dir), "c", step=7, bundle_threshold=1024)
     dist.barrier()
-    restored, step = restore_checkpoint(abstract_train_state(api, opt), PosixConnector(plain_dir),
-                                        "c", shardings=cell.in_shardings[0])
+    # the full leaves a rank holds at once while it restores: each read leaf
+    # lands in a tensor ``_to_device`` makes
+    alive, held = [], [0]
+    to_device = ckpt_module._to_device
+
+    def tracked(data, dev):
+        t = to_device(data, dev)
+        alive.append(weakref.ref(t))
+        held[0] = max(held[0], sum(r() is not None for r in alive))
+        return t
+
+    ckpt_module._to_device = tracked
+    try:
+        restored, step = restore_checkpoint(abstract_train_state(api, opt),
+                                            PosixConnector(plain_dir), "c",
+                                            shardings=cell.in_shardings[0])
+    finally:
+        ckpt_module._to_device = to_device
     shards_ok = all(
         torch.equal(r.to_local(), distribute_tensor(flatten(state)[k], mesh, r.placements,
                                                     src_data_rank=None).to_local())
         for k, r in flatten(restored).items())
     n_sharded = sum(any(p.is_shard() for p in r.placements) for r in flatten(restored).values())
+    # each rank keeps its shard's bytes only, not a view into the full leaf
+    own = all(r.to_local().untyped_storage().nbytes()
+              == r.to_local().numel() * r.to_local().element_size()
+              for r in flatten(restored).values())
     d_state = distribute_like(state, cell.in_shardings[0], mesh)
     save_checkpoint(d_state, PosixConnector(sharded_dir), "c", step=7, bundle_threshold=1024)
     dist.barrier()
@@ -324,6 +346,7 @@ def _ckpt_cases(mesh, tmp):
                        for d, _, fs in os.walk(base) for f in fs}
     a, b = files[plain_dir], files[sharded_dir]
     return {"step": step, "restored_shards_match": shards_ok, "sharded_leaves": n_sharded,
+            "shard_storage_own": own, "full_leaves_held_at_once": held[0],
             "leaves": len(flatten(restored)), "files": len(a),
             "manifest_equal": a.get("step_7/manifest.json") == b.get("step_7/manifest.json"),
             "bytes_equal": a == b}
@@ -460,6 +483,16 @@ def test_elastic_restore_onto_2x2_placements(dense):
     c = dense["ckpt"]
     assert c["step"] == 7 and c["restored_shards_match"]
     assert 0 < c["sharded_leaves"] < c["leaves"]
+
+
+def test_elastic_restore_keeps_only_shards(dense):
+    """A rank reads one full leaf at a time and keeps only its shard's
+    bytes: one full leaf alive at once, and no restored shard's storage
+    larger than the shard (a view into the full leaf would keep it alive).
+    Either fault would have each rank hold the unsharded state."""
+    c = dense["ckpt"]
+    assert c["full_leaves_held_at_once"] == 1
+    assert c["shard_storage_own"]
 
 
 def test_sharded_save_byte_identical(dense):

@@ -329,8 +329,8 @@ def test_rwkv_loss_and_grad_run_ssm_kernel_twice_per_layer(cuda):
     kernel_scan = ssm_ops.ssm_scan
     try:
         ssm_ops.ssm_scan = lambda q, k, v, g, u=None, initial_state=None, *, chunk, subchunk, \
-            io_dtype, shard_constrain: ssm_scan_chunked(q, k, v, g, u, initial_state, chunk=chunk,
-                                                        subchunk=subchunk, io_dtype=io_dtype)
+            io_dtype: ssm_scan_chunked(q, k, v, g, u, initial_state, chunk=chunk,
+                                       subchunk=subchunk, io_dtype=io_dtype)
         loss_p, _, grads_p = value_and_grad(api, params, batch)
     finally:
         ssm_ops.ssm_scan = kernel_scan
@@ -457,7 +457,7 @@ def test_hybrid_prefill_runs_scan_per_mamba_layer_and_flash_per_attention_layer(
         kernel_scan = ssm_ops.ssm_scan
         try:
             ssm_ops.ssm_scan = lambda q, k, v, g, u=None, initial_state=None, *, chunk, subchunk, \
-                scalar_decay, io_dtype, shard_constrain: ssm_scan_chunked(
+                scalar_decay, io_dtype: ssm_scan_chunked(
                     q, k, v, g, u, initial_state, chunk=chunk, subchunk=subchunk,
                     scalar_decay=scalar_decay, io_dtype=io_dtype)
             want, want_cache, _ = plain.prefill(params, {"tokens": tokens}, pad_to=97)

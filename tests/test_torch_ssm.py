@@ -241,15 +241,17 @@ def test_ssm_scan_cpu_path_is_differentiable():
 @pytest.mark.parametrize("where", ["chunked", "op", "model", "mamba"])
 def test_ssm_shard_constrain_matches_jax(where):
     """The reference's (batch, heads) pins, with no sharding rules
-    installed, are the identity in both packages: the plain function, the op
-    and rwkv6 / jamba models with ``ssm_shard_constraints`` equal JAX's with
-    the same toggle.  Under a 2x2 mesh they are held to the unsharded port
-    in tests/test_torch_cells.py."""
+    installed, are the identity in both packages: the plain function and
+    rwkv6 / jamba models with ``ssm_shard_constraints`` equal JAX's with the
+    same toggle, and so does the op, which has no pin of its own (a rank
+    runs it on its local tensors, where a pin is the identity).  Under a 2x2
+    mesh they are held to the unsharded port in tests/test_torch_cells.py."""
     q, k, v, g, s0, u = _inputs(2, 40, 2, 8, 8, seed=2)
     if where in ("chunked", "op"):
+        pin = {"shard_constrain": True} if where == "chunked" else {}
         fn = ssm_scan_chunked if where == "chunked" else ssm_scan
         y, s = fn(*_t(q, k, v, g), u=torch.from_numpy(u), initial_state=torch.from_numpy(s0),
-                  chunk=8, subchunk=4, shard_constrain=True)
+                  chunk=8, subchunk=4, **pin)
         jy, js = jssm.ssm_scan_chunked(*_j(q, k, v, g), u=jnp.asarray(u),
                                        initial_state=jnp.asarray(s0), chunk=8, subchunk=4,
                                        shard_constrain=True)

@@ -118,7 +118,20 @@
    fp32 logits (within SHARDED_FP32_LIMIT) against the unsharded run, both
    prefills' walls and idle shares; then jamba scaled down in fp32 the same
    way (the scan and flash's fp32 path through ``local_map``);
-16. prints one JSON line of per-kernel launches (by path), times and
+16. runs the port's pod-scale dry run of granite-moe-1b-a400m's train_4k
+   cell on the 16x16 mesh (``dryrun``: ``python -m
+   repro_torch.launch.dryrun`` in its own process, started beside the
+   build, its fake process group of 256 ranks kept away from
+   serve_sharded's real one) and prints its roofline terms against the
+   H100's datasheet figures, its seconds, and its counts over the same
+   cell's CPU reading under torch 2.13 (DRYRUN_CPU_READING: DTensor's
+   rules, and so the counts, differ between torch versions);
+17. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
+   port's ``cost_numbers`` for the same config and 2 x 2048 tokens) and
+   sets its FLOPs and bytes against ``roofline.hw.HW_H100`` beside the
+   step seconds and busy ms ``train_moe`` measured; checks that
+   ``HW_H100``'s 80 GB is within HBM_MATCH of the card's memory;
+18. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -306,6 +319,16 @@ MOE_TRAIN_FP32_LIMIT = 1e-3
 #: rank: every placement is trivial, so the runs should be bit-equal)
 SHARDED_WORKLOAD = (4, 512, 8)
 SHARDED_FP32_LIMIT = 1e-6
+#: the dry run's cell (single pod, 16x16) and its time limit, seconds
+DRYRUN_CELL, DRYRUN_TIMEOUT = (MOE_ARCH, "train_4k"), 600
+#: the same cell's counts a rank on a CPU under torch 2.13.0+cpu (PERF.md's
+#: dry-run table): the phase prints this run's counts over these, as DTensor's
+#: sharding rules, and so the counts, differ between torch versions
+DRYRUN_CPU_READING = {"torch": "2.13.0+cpu", "hlo_flops_per_dev": 24449503985664.0,
+                      "hlo_bytes_per_dev": 5442688116806.0,
+                      "coll_bytes_per_dev": 507047590148.0}
+#: HW_H100's HBM bytes against the card's total memory: largest relative gap
+HBM_MATCH = 0.03
 
 
 class SmokeFailure(Exception):
@@ -2672,6 +2695,94 @@ def serve_sharded(torch, kernels, ckpt_dir, trained, device):
         dist.destroy_process_group()
 
 
+def start_dryrun(results_dir):
+    """The port's dry run of DRYRUN_CELL on the 16x16 mesh, started in its
+    own process: its fake process group must not meet serve_sharded's real
+    one.  It needs no device, so it runs beside the build and the phases."""
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with open(os.path.join(results_dir, "dryrun.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--single-pod-only", "--results-dir", results_dir],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+
+
+def dryrun_phase(proc, results_dir, t0, torch_version):
+    """Waits for ``start_dryrun``'s process; its roofline terms and seconds,
+    and its counts over DRYRUN_CPU_READING's."""
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"the dry run took more than {DRYRUN_TIMEOUT} s")
+    with open(os.path.join(results_dir, "dryrun.log")) as f:
+        out = f.read()
+    lines = [ln for ln in out.splitlines() if "]:W" not in ln]
+    check(proc.returncode == 0 and "ALL DRY-RUN CELLS PASSED" in out,
+          f"the dry run failed (exit {proc.returncode}): {' | '.join(lines[-8:])}")
+    arch, shape = DRYRUN_CELL
+    with open(os.path.join(results_dir, f"dryrun_{arch}_{shape}_16x16.json")) as f:
+        rec = json.load(f)
+    row = {"cell": f"{arch} x {shape} @ 16x16",
+           "terms": next(ln.strip() for ln in lines if "-bound;" in ln),
+           **{k: rec[k] for k in ("ok", "hw", "n_devices", "hlo_flops_per_dev",
+                                  "hlo_bytes_per_dev", "coll_bytes_per_dev", "t_compute",
+                                  "t_memory", "t_collective", "bottleneck", "useful_ratio",
+                                  "peak_fraction", "bytes_per_dev_argument",
+                                  "bytes_per_dev_output", "fits_hbm", "lower_seconds",
+                                  "count_seconds", "seconds")},
+           "coll_count": rec["coll_detail"]["count"], "torch": torch_version,
+           "over_cpu_reading": {k: rec[k] / v for k, v in DRYRUN_CPU_READING.items()
+                                if k != "torch"},
+           "cpu_reading_torch": DRYRUN_CPU_READING["torch"]}
+    check(row["ok"] and row["hlo_flops_per_dev"] > 0 and row["coll_bytes_per_dev"] > 0,
+          f"the dry run's record {row}")
+    emit({"phase": "dryrun", **row})
+    return row
+
+
+def roofline_phase(torch, moe_row):
+    """``train_moe``'s step counted on ``meta`` (the same config, 2 x 2048
+    tokens, one card, so no collectives) and set against HW_H100 beside the
+    step's measured seconds and busy ms.  On ``meta`` the flash forward is
+    counted as the plain chunked form the dispatcher runs there."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.models.registry import build, train_batch_specs
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.roofline import HW_H100, CostCounter, cost_numbers, model_flops
+    from repro_torch.runtime.steps import abstract_train_state, make_train_step
+    cfg = get_config(MOE_ARCH)
+    shape = ShapeConfig("train_moe", TRAIN_SEQ, TRAIN_BATCH, "train")
+    api, opt = build(cfg, "meta"), OptimizerConfig(state_dtype="float32")
+    t0 = time.perf_counter()
+    with CostCounter() as counter:
+        make_train_step(api, opt)(abstract_train_state(api, opt), train_batch_specs(cfg, shape))
+    nums, count_s = cost_numbers(counter.record()), time.perf_counter() - t0
+    mf = model_flops(cfg, shape)
+    step_s, busy_ms = moe_row["median_step_s"], moe_row["profile"]["device_busy_ms"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    row = {"cell": f"{MOE_ARCH} train 2 x 2048, one card", "hw": HW_H100.name,
+           "count_seconds": count_s, "flops": nums["flops"], "bytes": nums["bytes"],
+           "model_flops": mf, "t_compute": nums["flops"] / HW_H100.peak_flops_bf16,
+           "t_memory": nums["bytes"] / HW_H100.hbm_bw,
+           "t_model_flops": mf / HW_H100.peak_flops_bf16,
+           "measured_step_s": step_s, "measured_busy_ms": busy_ms,
+           "achieved_share_of_peak": nums["flops"] / step_s / HW_H100.peak_flops_bf16,
+           "model_flops_share_of_peak": mf / step_s / HW_H100.peak_flops_bf16,
+           "busy_share_of_peak": nums["flops"] / (busy_ms / 1e3) / HW_H100.peak_flops_bf16,
+           "hbm_bytes": HW_H100.hbm_bytes, "device_total_memory": total}
+    check(abs(HW_H100.hbm_bytes - total) <= HBM_MATCH * total,
+          f"HW_H100.hbm_bytes {HW_H100.hbm_bytes} against the card's {total}")
+    check(nums["flops"] >= mf and nums["coll"]["total"] == 0,
+          f"counted {nums['flops']} FLOPs against the model's {mf}, "
+          f"collectives {nums['coll']}")
+    emit({"phase": "roofline", **row})
+    return row
+
+
 def main() -> int:
     import argparse
 
@@ -2713,6 +2824,9 @@ def main() -> int:
           "peak_bytes_per_s": PEAK_BYTES_PER_S, "peak_bf16_flops": PEAK_BF16_FLOPS,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    t_dryrun = time.perf_counter()
+    dryrun = start_dryrun(dryrun_dir)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc per source
         logs = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
@@ -2751,16 +2865,22 @@ def main() -> int:
         rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
             torch, launch_train, kernels, ssm_ops, ssm_ref, device)
         torch.cuda.empty_cache()
-        moe_train_fa, moe_train_sync, moe_train_cs, trained, _ = train_moe(
+        moe_train_fa, moe_train_sync, moe_train_cs, trained, moe_row = train_moe(
             torch, launch_train, kernels, ckpt_dir, device)
         torch.cuda.empty_cache()
         _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
         del trained
+        dryrun_phase(dryrun, dryrun_dir, t_dryrun, torch.__version__)
+        roofline_phase(torch, moe_row)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),

@@ -17,16 +17,18 @@ Unlike the reference, which hashes host bytes, both ends of paper §7 run on
 the device that holds the tensors: the source digest of each leaf is taken
 from its device copy (``checksum_digests``, the lanesum32 kernel on CUDA),
 and post-write and restore verification digest the bytes read back from
-storage after they are copied to that device.  Each pass launches one
-kernel per leaf and reads all the sums back once.
+storage after they are copied to that device.  One kernel is launched per
+leaf: the save reads each leaf's sums back before its host copy, the
+verification passes read all the sums back once.
 
 Leaves are written as their row-major bytes (``t.contiguous()`` viewed as
 uint8) and read back with ``torch.frombuffer`` and a ``view`` to the
 manifest's dtype, so bfloat16 needs no numpy support for it.
 
 The format does not depend on a mesh.  A ``DTensor`` leaf is saved as its
-full tensor (every rank gathers it; rank 0 writes), so a sharded save is
-byte for byte the unsharded save of the same state.  ``restore_checkpoint``
+full tensor (every rank gathers it, one leaf at a time; rank 0 digests,
+copies and writes it), so a sharded save is byte for byte the unsharded
+save of the same state.  ``restore_checkpoint``
 with ``shardings`` has every rank read each full leaf, verify its digest
 on the mesh's device, and keep its own shard (elastic restart onto another
 mesh).
@@ -85,11 +87,12 @@ def _to_device(data: bytes, device: torch.device) -> torch.Tensor:
 
 @dataclass
 class HostLeaf:
-    """One leaf's row-major bytes on the host, with its device digest."""
+    """One leaf's row-major bytes on the host, with its device digest
+    (both ``None`` on the ranks that do not write a sharded save)."""
 
     path: str
-    data: memoryview
-    checksum: str
+    data: memoryview | None
+    checksum: str | None
     shape: list
     dtype: str
     device: torch.device
@@ -97,25 +100,35 @@ class HostLeaf:
 
 def snapshot(state, timings: dict | None = None) -> list[HostLeaf]:
     """Digests every leaf of ``state`` on its device, then copies its bytes
-    to the host.  Both are done when this returns, so the caller may update
-    ``state`` in place afterwards.  Leaves come in sorted path order."""
+    to the host, one leaf at a time, as the reference saves.  Both are done
+    when this returns, so the caller may update ``state`` in place
+    afterwards.  Leaves come in sorted path order.  A ``DTensor`` leaf is
+    gathered just before its digest and dropped after its copy, so a rank
+    holds at most one full leaf beside its shards; every rank must call
+    this, and only rank 0 of the default group, which writes, digests and
+    keeps host bytes."""
     timings = {} if timings is None else timings
     leaves = sorted(flatten(state).items())
-    tensors = [(t.full_tensor() if isinstance(t, DTensor) else t).detach().contiguous()
-               for _, t in leaves]
-    t0 = time.perf_counter()
-    digests = _digests([t.device for t in tensors], tensors.__getitem__)
-    t1 = time.perf_counter()  # digests read back: the device work is done
-    # blocking copies, made on the CPU too: there ``.cpu()`` would alias the
-    # live tensor, and the writer thread would write bytes from after the
-    # caller's next in-place update under the digest taken before it
-    hosts = [t.reshape(-1).view(torch.uint8).to("cpu", copy=True) for t in tensors]
-    t2 = time.perf_counter()
-    timings.update(leaves=len(leaves), digest_s=t1 - t0, d2h_s=t2 - t1,
-                   bytes=sum(h.numel() for h in hosts))
-    return [HostLeaf(path, memoryview(h.numpy()), dig, list(t.shape),
-                     dtype_name(t.dtype), t.device)
-            for (path, _), t, h, dig in zip(leaves, tensors, hosts, digests)]
+    keep = (not any(isinstance(t, DTensor) for _, t in leaves)) or dist.get_rank() == 0
+    out, digest_s, d2h_s, nbytes = [], 0.0, 0.0, 0
+    for path, t in leaves:
+        t = (t.full_tensor() if isinstance(t, DTensor) else t).detach().contiguous()
+        data = dig = None
+        if keep:
+            t0 = time.perf_counter()
+            dig = checksum_digests([t])[0]
+            t1 = time.perf_counter()  # the digest read back: the device work is done
+            # a blocking copy, made on the CPU too: there ``.cpu()`` would alias the
+            # live tensor, and the writer thread would write bytes from after the
+            # caller's next in-place update under the digest taken before it
+            host = t.reshape(-1).view(torch.uint8).to("cpu", copy=True)
+            d2h_s += time.perf_counter() - t1
+            digest_s += t1 - t0
+            nbytes += host.numel()
+            data = memoryview(host.numpy())
+        out.append(HostLeaf(path, data, dig, list(t.shape), dtype_name(t.dtype), t.device))
+    timings.update(leaves=len(leaves), digest_s=digest_s, d2h_s=d2h_s, bytes=nbytes)
+    return out
 
 
 def write_snapshot(leaves: list[HostLeaf], connector: Connector, base: str,
@@ -204,9 +217,9 @@ def save_checkpoint(state, connector: Connector, base: str, step: int,
                     bundle_threshold: int = 4 * MB,
                     verify: bool = True) -> dict:
     """Writes ``state`` under ``base/step_<n>/``.  Returns the manifest.
-    With ``DTensor`` leaves every rank must call it (each gathers the full
-    leaves); rank 0 of the default group writes and sends the others the
-    manifest it wrote."""
+    With ``DTensor`` leaves every rank must call it (each takes part in
+    gathering each full leaf in turn); rank 0 of the default group digests,
+    copies and writes them and sends the others the manifest it wrote."""
     leaves = snapshot(state)
     if not any(isinstance(t, DTensor) for t in flatten(state).values()):
         return write_snapshot(leaves, connector, base, step, credential,

@@ -3,8 +3,11 @@
 ``flash_attention`` takes (B, S, H, dh) tensors as the reference's
 ``repro/kernels/flash_attention/ops.py::flash_attention`` does.  A CUDA
 tensor goes to the Hopper kernel (``kernel.py``), a CPU tensor to the
-plain chunked version (``ref.py``).  There is no fallback: a kernel that
-fails to build or launch raises.
+plain chunked version (``ref.py``), and so does a ``meta`` tensor: the dry
+run (``launch/dryrun.py``) counts the FLOPs of the plain chunked form, as
+the reference's dry run counts its default ``attn_impl="chunked"``.  Any
+other device raises.  There is no fallback: a kernel that fails to build
+or launch raises.
 
 ``flash_attention_auto`` is what the model layer calls.  Unlike the
 reference, where ``cfg.attn_impl`` picks Pallas or chunked jnp, the
@@ -46,7 +49,7 @@ def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
             "accumulates P.V in fp32")
     if q.device.type == "cuda":
         return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                                  accum_bf16=accum_bf16)
     raise ValueError(f"flash_attention: no path for device {q.device}")

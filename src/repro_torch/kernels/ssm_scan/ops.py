@@ -3,8 +3,9 @@
 ``ssm_scan`` has the signature of the reference's
 ``repro/kernels/ssm_scan/ops.py::ssm_scan``.  A CUDA tensor goes to the
 Hopper kernel (``kernel.py``), a CPU tensor to the plain chunked version
-(``ref.py``), any other device raises.  There is no fallback: a kernel
-that fails to build or launch raises.
+(``ref.py``), and so does a ``meta`` tensor, whose FLOPs the dry run
+counts (``launch/dryrun.py``); any other device raises.  There is no
+fallback: a kernel that fails to build or launch raises.
 
 ``chunk`` and ``subchunk`` shape the plain version, as they shape the TPU
 kernel's blocks; the Hopper kernel walks T in its own steps and masks a
@@ -137,7 +138,7 @@ def ssm_scan(q, k, v, log_decay, u=None, initial_state=None, *,
     ``scalar_decay``: the decay is constant over K (mamba).  Returns
     (y (B, T, H, V) in q's dtype, final state (B, H, K, V) float32)."""
     sub = _check_chunks(chunk, subchunk)
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"ssm_scan: no path for device {q.device}")
     # the rounding ssm_scan_chunked does to its fp32 copies, in place of them
     q, k, v = (t.to(io_dtype).to(t.dtype)

@@ -12,24 +12,33 @@ shardings need only the mesh's shape, so a cell's trees can be built on
 an object with a ``.shape`` dict, as the reference tests' ``FakeMesh``;
 running a step needs a ``DeviceMesh`` (``launch/mesh.py``).
 
-``lower_cell`` (jit, lower and compile at pod scale) and the dry run
-built on it are ROADMAP A13 and left out.
+``lower_cell`` is the dry run's entry (``launch/dryrun.py``).  The
+reference jits, lowers and compiles the cell; PyTorch runs eagerly, so
+here the cell's abstract inputs are placed as ``DTensor``s whose local
+shards are ``meta`` tensors, and the step runs once on them under
+``roofline.CostCounter``, which counts each rank's FLOPs, bytes and
+collectives.  On a fake process group of the production mesh's size
+(256 or 512 ranks in one process) that is the reference's pod-scale dry
+run without a device.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..configs import get_config
 from ..models.common import SHAPES, ArchConfig, ShapeConfig
-from ..models.convert import tree_map
+from ..models.convert import flatten, tree_map
 from ..models.registry import build, decode_specs, prefill_batch_specs, train_batch_specs
 from ..optim import OptimizerConfig
+from ..roofline.analysis import CostCounter
 from ..runtime.steps import (abstract_train_state, make_prefill_step, make_serve_step,
                              make_train_step)
 from ..sharding.rules import (P, AxisRules, axis_rules, batch_spec, mesh_shape,
@@ -79,6 +88,7 @@ class Cell:
     out_shardings: Any
     abstract_inputs: tuple
     kind: str  # train | prefill | decode
+    abstract_outputs: tuple = ()  # the outputs' shapes and dtypes, on ``meta``
 
 
 def _dp_axes(mesh):
@@ -202,7 +212,7 @@ def build_cell(arch_id: str, shape: str | ShapeConfig, mesh, cfg: ArchConfig | N
         bspecs = train_batch_specs(cfg, shape)
         batch_sh = batch_sharding_tree(bspecs, mesh, rules)
         raw_step = make_train_step(api, opt_cfg)
-        metric_sh = {k: repl for k in ("loss", "xent", "moe_aux", "grad_norm", "lr")}
+        metric_sh = tree_map(lambda _: repl, _metric_specs())
 
         def train_step(state, batch):
             state, metrics = raw_step(state, batch)
@@ -211,7 +221,7 @@ def build_cell(arch_id: str, shape: str | ShapeConfig, mesh, cfg: ArchConfig | N
 
         return Cell(arch_id, shape.name, cfg, shape, rules, ruled(train_step),
                     (state_sh, batch_sh), (state_sh, metric_sh),
-                    (state_specs, bspecs), "train")
+                    (state_specs, bspecs), "train", (state_specs, _metric_specs()))
 
     pspecs = api.abstract_params()
     psh = _param_shardings(pspecs, mesh, rules)
@@ -221,8 +231,8 @@ def build_cell(arch_id: str, shape: str | ShapeConfig, mesh, cfg: ArchConfig | N
         batch_sh = batch_sharding_tree(bspecs, mesh, rules)
         # a prefill over S tokens leaves the caches a decode cache of S holds
         seq = max(shape.seq_len, pad_to or 0)
-        cache_sh = cache_sharding_tree(api.make_cache(shape.global_batch, seq, abstract=True),
-                                       cfg, shape, mesh)
+        cache_specs = api.make_cache(shape.global_batch, seq, abstract=True)
+        cache_sh = cache_sharding_tree(cache_specs, cfg, shape, mesh)
         vmodel = "model" if cfg.vocab_size % mesh_shape(mesh).get("model", 1) == 0 else None
         logits_sh = Sharding(mesh, P(*bsp, None, vmodel))
         raw_step = make_prefill_step(api, pad_to=pad_to)
@@ -231,8 +241,11 @@ def build_cell(arch_id: str, shape: str | ShapeConfig, mesh, cfg: ArchConfig | N
             logits, cache = raw_step(params, batch)
             return _settle(logits, logits_sh), _settle(cache, cache_sh)
 
+        logits_spec = torch.empty((shape.global_batch, 1, cfg.vocab_size), dtype=torch.float32,
+                                  device="meta")
         return Cell(arch_id, shape.name, cfg, shape, rules, ruled(prefill_step, grad=False),
-                    (psh, batch_sh), (logits_sh, cache_sh), (pspecs, bspecs), "prefill")
+                    (psh, batch_sh), (logits_sh, cache_sh), (pspecs, bspecs), "prefill",
+                    (logits_spec, cache_specs))
 
     token_spec, pos_spec, cache_specs = decode_specs(cfg, shape)
     cache_sh = cache_sharding_tree(cache_specs, cfg, shape, mesh)
@@ -245,4 +258,64 @@ def build_cell(arch_id: str, shape: str | ShapeConfig, mesh, cfg: ArchConfig | N
 
     return Cell(arch_id, shape.name, cfg, shape, rules, ruled(decode_step, grad=False),
                 (psh, cache_sh, tok_sh, repl), (tok_sh, cache_sh),
-                (pspecs, cache_specs, token_spec, pos_spec), "decode")
+                (pspecs, cache_specs, token_spec, pos_spec), "decode",
+                (token_spec, cache_specs))
+
+
+def _metric_specs():
+    f32 = torch.empty((), dtype=torch.float32, device="meta")
+    return {"loss": f32, "xent": f32, "moe_aux": f32, "grad_norm": f32, "lr": f32}
+
+
+def rank_bytes(tree, shardings) -> int:
+    """Bytes one rank holds of ``tree``'s tensors in their shardings'
+    placements: each dim cut over the mesh dims that shard it, rounded up
+    (the largest shard of an uneven cut)."""
+    total = 0
+    for t, sh in zip(flatten(tree).values(), flatten(shardings).values()):
+        dims = list(t.shape)
+        for i, p in enumerate(sh.placements):
+            if isinstance(p, Shard):
+                dims[p.dim] = math.ceil(dims[p.dim] / sh.mesh.size(i))
+        total += math.prod(dims) * t.element_size()
+    return total
+
+
+def place_abstract(tree, shardings, mesh):
+    """``tree``'s ``meta`` tensors as ``DTensor``s on ``mesh`` in their
+    shardings' placements, each holding its rank's local shard on ``meta``:
+    no data and no collective, as the reference's abstract inputs to
+    ``lower``."""
+    def leaf(t, sh):
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, sh.placements)
+        return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), mesh,
+                                  sh.placements, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    return tree_map(leaf, tree, shardings)
+
+
+@dataclass
+class MemoryAnalysis:
+    """The counterpart of a compiled cell's ``memory_analysis()``, per rank:
+    argument and output bytes from the cell's placements.  Eager execution
+    has no temp buffers to read, so ``temp_size_in_bytes`` is ``None``."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int | None = None
+
+
+def memory_analysis(cell: Cell) -> MemoryAnalysis:
+    return MemoryAnalysis(rank_bytes(cell.abstract_inputs, cell.in_shardings),
+                          rank_bytes(cell.abstract_outputs, cell.out_shardings))
+
+
+def lower_cell(cell: Cell, mesh) -> dict:
+    """Places the cell's abstract inputs on ``mesh`` by its in-shardings and
+    runs its step once under ``CostCounter`` (the dry run's entry).  Returns
+    one rank's ``CostCounter.record()``."""
+    args = [place_abstract(t, sh, mesh) for t, sh in zip(cell.abstract_inputs, cell.in_shardings)]
+    with CostCounter() as counter:
+        cell.step_fn(*args)
+    return counter.record()

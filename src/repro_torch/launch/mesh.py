@@ -10,8 +10,10 @@ caller asks for ``"cpu"`` (a gloo group, as the tests run it).
 
 The reference's production meshes are TPU v5e pods: 16x16 = 256 chips a
 pod, and a leading "pod" axis of 2 for 512.  It lowers them on 512 fake
-host devices in its dry run; that dry run's counterpart here is ROADMAP
-A13, so ``make_production_mesh`` raises on a smaller world.
+host devices in its dry run.  Here the dry run (``launch/dryrun.py``)
+builds them with ``device_type="cpu"`` on a fake process group of 256 or
+512 ranks in one process; on a smaller world ``make_production_mesh``
+raises.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ def _mesh(shape: tuple, axes: tuple, device_type: str):
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The 16x16 ("data", "model") mesh, or 2x16x16 ("pod", "data",
-    "model") with ``multi_pod``.  Raises below 256 / 512 ranks: lowering
-    these meshes on a fake process group is ROADMAP A13."""
+    "model") with ``multi_pod``.  Needs a process group of 256 / 512 ranks:
+    a real one, or the dry run's fake one (``launch/dryrun.py::fake_group``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     size = 512 if multi_pod else 256
@@ -42,7 +44,8 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     if world < size:
         raise RuntimeError(
             f"make_production_mesh: the {shape} mesh needs {size} ranks and the "
-            f"world has {world}; the dry run on a fake process group is ROADMAP A13")
+            f"world has {world}; the dry run builds it on a fake process group "
+            "(python -m repro_torch.launch.dryrun)")
     return _mesh(shape, axes, device_type)
 
 

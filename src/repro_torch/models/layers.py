@@ -14,10 +14,11 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.flash_attention.ops import flash_attention_auto
 from ..kernels.flash_attention.ref import chunked_attention  # noqa: F401  (the reference's layers.chunked_attention)
-from ..sharding.rules import logical_constraint
+from ..sharding.rules import lift, logical_constraint
 from .common import ArchConfig
 
 
@@ -48,10 +49,42 @@ def linear_init(gen, d_in, d_out, dtype, bias=False, scale=None):
 
 
 def linear(p, x):
-    y = x @ p["w"].to(x.dtype)
+    y = reduce_partial(x @ p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _replicate_partial(t):
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+class _ReducePartial(torch.autograd.Function):
+    """The identity on a ``DTensor``, whose forward and backward each reduce
+    partial sums (``_replicate_partial``)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return _replicate_partial(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _replicate_partial(g)
+
+
+def reduce_partial(y):
+    """``y`` with the partial sums of a ``DTensor`` reduced (an all-reduce
+    over each mesh dim where it is ``Partial``), and so its gradient, as XLA
+    reduces a product whose contracted dim is sharded.  Left partial, the
+    sum would flow into the next product, and DTensor, which picks each
+    op's layout by the bytes it moves, would gather that product's weight
+    and run it whole on every rank rather than reduce the activation."""
+    if not isinstance(y, DTensor):
+        return y
+    return _ReducePartial.apply(y) if y.requires_grad else _replicate_partial(y)
 
 
 def rmsnorm_init(d, dtype, device):
@@ -101,14 +134,33 @@ def attention_init(gen, cfg: ArchConfig, dtype):
     }
 
 
+def split_dim(t, dim: int, n: int):
+    """``t`` with dim ``dim`` split into (n, size // n): (..., n_heads * dh)
+    into heads, or heads into (kv heads, group).  A ``DTensor`` whose dim
+    ``dim`` is cut over mesh dims whose product does not divide ``n`` (8 kv
+    heads under a 16-wide model axis) is first redistributed to be cut over
+    the largest leading run of those mesh dims that does, and whole on the
+    rest: DTensor cannot view a dim cut into pieces that straddle the new
+    outer dim (XLA's partitioner reshards by itself in the reference)."""
+    dim = dim % t.dim()
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        cut = [i for i, p in enumerate(t.placements) if p == Shard(dim)]
+        keep, prod = 0, 1
+        while keep < len(cut) and n % (prod * mesh.size(cut[keep])) == 0:
+            prod *= mesh.size(cut[keep])
+            keep += 1
+        if keep < len(cut):
+            t = t.redistribute(mesh, [Replicate() if i in cut[keep:] else p
+                                      for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:dim], n, t.shape[dim] // n, *t.shape[dim + 1:])
+
+
 def _qkv(p, x, x_kv, cfg):
-    B, S = x.shape[:2]
-    dh = cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, S, cfg.n_heads, dh)
+    q = split_dim(linear(p["wq"], x), -1, cfg.n_heads)
     kv_src = x if x_kv is None else x_kv
-    Skv = kv_src.shape[1]
-    k = linear(p["wk"], kv_src).reshape(B, Skv, cfg.n_kv_heads, dh)
-    v = linear(p["wv"], kv_src).reshape(B, Skv, cfg.n_kv_heads, dh)
+    k = split_dim(linear(p["wk"], kv_src), -1, cfg.n_kv_heads)
+    v = split_dim(linear(p["wv"], kv_src), -1, cfg.n_kv_heads)
     return q, k, v
 
 
@@ -165,28 +217,41 @@ def attention_apply(p, x, cfg: ArchConfig, *, causal=True, positions=None,
     return linear(p["wo"], out), (k, v)
 
 
-def _write_at(cache, pos: int, new):
+def _write_at(cache, pos, new):
     """``cache[:, pos] = new[:, 0]`` in place; cache (B, S_max, ...), new
-    (B, 1, ...).  A ``DTensor`` cache cut over S_max (the KV cache when its
-    heads do not divide the model axis) is written by the ranks whose shard
-    holds ``pos``, at its local row: DTensor's own indexing would write row
-    ``pos`` of every rank's shard."""
-    if not isinstance(cache, DTensor) or Shard(1) not in cache.placements:
-        cache[:, pos] = new[:, 0].to(cache.dtype)
+    (B, 1, ...), ``pos`` an int or a 0-d integer tensor, which is never
+    read on the host.  A ``DTensor`` cache is written through each rank's
+    local shard: one cut over S_max (the KV cache when its heads do not
+    divide the model axis) by the ranks whose shard holds ``pos``, at its
+    local row (DTensor's own indexing would write row ``pos`` of every
+    rank's shard); with a tensor ``pos`` every rank writes its row nearest
+    ``pos``, with itself where its shard does not hold ``pos``."""
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        if isinstance(pos, torch.Tensor):
+            cache.index_copy_(1, pos.reshape(1).long(), new)
+        else:
+            cache[:, pos] = new[:, 0]
         return
     mesh = cache.device_mesh
-    new = new.to(cache.dtype).redistribute(
-        mesh, [Replicate() if p == Shard(1) else p for p in cache.placements])
+    new = new.redistribute(mesh, [Replicate() if p == Shard(1) else p for p in cache.placements])
     shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
-    if offset[1] <= pos < offset[1] + shape[1]:
-        cache.to_local()[:, pos - offset[1]] = new.to_local()[:, 0]
+    local, row = cache.to_local(), new.to_local()
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to_local() if isinstance(pos, DTensor) else pos
+        i = (pos - offset[1]).clamp(0, shape[1] - 1).reshape(1).long()
+        held = (pos >= offset[1]) & (pos < offset[1] + shape[1])
+        local.index_copy_(1, i, torch.where(held, row, local.index_select(1, i)))
+    elif offset[1] <= pos < offset[1] + shape[1]:
+        local[:, pos - offset[1]] = row[:, 0]
 
 
-def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
+def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
                      use_rope=True, cross_kv=None):
     """One-token decode against a fixed-size KV cache.
 
-    x: (B, 1, d); cache_k/v: (B, S_max, KV, dh); pos: int.  The new k/v
+    x: (B, 1, d); cache_k/v: (B, S_max, KV, dh); pos: an int or a 0-d
+    integer tensor (the decode cell's abstract ``pos``).  The new k/v
     are written into the caches in place at ``pos`` (the reference returns
     updated copies from ``dynamic_update_slice``).  With ``cross_kv`` =
     (k, v), the encoder's (B, S_enc, KV, dh), the token attends to every
@@ -195,15 +260,17 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
     """
     B = x.shape[0]
     dh = cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, 1, cfg.n_heads, dh)
+    q = split_dim(linear(p["wq"], x), -1, cfg.n_heads)
     if cross_kv is not None:
         k, v = cross_kv
         mask_pos = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
     else:
-        k_new = linear(p["wk"], x).reshape(B, 1, cfg.n_kv_heads, dh)
-        v_new = linear(p["wv"], x).reshape(B, 1, cfg.n_kv_heads, dh)
+        k_new = split_dim(linear(p["wk"], x), -1, cfg.n_kv_heads)
+        v_new = split_dim(linear(p["wv"], x), -1, cfg.n_kv_heads)
         if use_rope:
-            pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+            # a tensor ``pos`` is broadcast, not read: no host sync, and none on ``meta``
+            pos_arr = (pos.to(torch.int32).expand(B, 1) if isinstance(pos, torch.Tensor)
+                       else torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
             q = apply_rope(q, pos_arr, cfg.rope_theta)
             k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
         _write_at(cache_k, pos, k_new)
@@ -213,15 +280,29 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, *,
         mask_pos = kv_pos <= pos
         if cfg.swa_window is not None:
             mask_pos &= kv_pos > pos - cfg.swa_window
-    KV = k.shape[2]
-    qg = q.reshape(B, KV, cfg.n_heads // KV, dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float()
-    s = s * (1.0 / math.sqrt(dh))
-    s = torch.where(mask_pos[None, None, None, :], s, -1e30)
-    p_attn = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", p_attn, v)
+    qg = split_dim(q, 2, k.shape[2])  # (B, 1, KV, G, dh)
+    if isinstance(k, DTensor) and Shard(1) not in k.placements:
+        # each rank attends with its batch rows and kv heads, k's layout: DTensor's
+        # own dispatch of the einsums plans redistributions for minutes on a 3-D mesh
+        kp = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in k.placements)
+        mesh, (qg, k, v, mask_pos) = lift(qg, k, v, mask_pos)
+        out = local_map(_attend_one, out_placements=list(kp), device_mesh=mesh,
+                        in_placements=(kp, kp, kp, (Replicate(),) * mesh.ndim),
+                        redistribute_inputs=True)(qg, k, v, mask_pos)
+    else:
+        out = _attend_one(qg, k, v, mask_pos)
     out = out.reshape(B, 1, cfg.n_heads * dh)
     return linear(p["wo"], out), cache_k, cache_v
+
+
+def _attend_one(qg, k, v, mask_pos):
+    """One query position against a KV cache: qg (B, 1, KV, G, dh), k / v
+    (B, S, KV, dh), mask_pos (S,) -> (B, 1, KV, G, dh) in qg's dtype."""
+    s = torch.einsum("bqkgd,bskd->bkgs", qg, k).float()
+    s = s * (1.0 / math.sqrt(qg.shape[-1]))
+    s = torch.where(mask_pos[None, None, None, :], s, -1e30)
+    p_attn = torch.softmax(s, dim=-1).to(qg.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", p_attn, v)[:, None]
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from ..sharding.rules import logical_constraint
@@ -57,6 +59,21 @@ def capacity(n_tokens: int, cfg: ArchConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
+def _top_k(probs, k: int):
+    """``torch.topk(probs, k, dim=-1)``.  A ``DTensor`` goes through
+    ``local_map`` on its rows, the expert dim whole: DTensor caches the
+    sharding of ``topk`` by its input's spec alone, not by ``k``, so a
+    second ``topk`` of an input like the first's but another ``k`` (dbrx's
+    top 4 after jamba's top 2, in one process) would take the first one's
+    global shape."""
+    if not isinstance(probs, DTensor):
+        return torch.topk(probs, k, dim=-1)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in probs.placements)
+    return local_map(lambda t: torch.topk(t, k, dim=-1), out_placements=(rows, rows),
+                     in_placements=(rows,), device_mesh=probs.device_mesh,
+                     redistribute_inputs=True)(probs)
+
+
 def moe_apply(p, x, cfg: ArchConfig):
     """x: (B, S, D) -> (y: (B, S, D), {"moe_aux": load-balance loss,
     "moe_drop_frac": share of (token, slot) pairs dropped}).  Routing and
@@ -72,7 +89,7 @@ def moe_apply(p, x, cfg: ArchConfig):
 
         logits = xt.float() @ p["router"]["w"].float()
         probs = torch.softmax(logits, dim=-1)                        # (T, E)
-        gate, idx = torch.topk(probs, K, dim=-1)                     # (T, K)
+        gate, idx = _top_k(probs, K)                                 # (T, K)
         gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)  # renorm
 
         # position of each (token, slot) within its expert queue, token-major

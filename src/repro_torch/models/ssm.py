@@ -26,8 +26,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..sharding.rules import logical_constraint
+from ..sharding.rules import lift, logical_constraint
 
 
 def ssm_scan_ref(q, k, v, log_decay, u=None, initial_state=None):
@@ -160,7 +162,21 @@ def ssm_scan_chunked(q, k, v, log_decay, u=None, initial_state=None,
 
 def ssm_decode_step(q, k, v, log_decay, state, u=None):
     """One-token decode: q, k: (B, H, K); v: (B, H, V); state: (B, H, K, V).
-    Returns (y (B, H, V) in q's dtype, new state fp32)."""
+    Returns (y (B, H, V) in q's dtype, new state fp32).  A ``DTensor`` state
+    runs the step on each rank's batch rows and heads, the state's layout
+    (the step is local to a (b, h)): DTensor's own dispatch of its einsum
+    plans redistributions for minutes on a 3-D mesh."""
+    if not isinstance(state, DTensor):
+        return _decode_step(q, k, v, log_decay, state, u)
+    rows = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in state.placements)
+    heads = tuple(Shard(0) if p == Shard(1) else Replicate() for p in rows)
+    mesh, ts = lift(q, k, v, log_decay, state, u)
+    return local_map(_decode_step, out_placements=(rows, rows), device_mesh=mesh,
+                     in_placements=(rows,) * 5 + (None if u is None else heads,),
+                     redistribute_inputs=True)(*ts)
+
+
+def _decode_step(q, k, v, log_decay, state, u):
     qf, kf, vf = (x.float() for x in (q, k, v))
     gf = log_decay.float()
     kv = kf[..., :, None] * vf[..., None, :]

@@ -24,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -437,7 +438,11 @@ def _embed(params, tokens, cfg: ArchConfig, batch=None):
     """Token embeddings in ``cfg.compute_dtype``; for a VLM with
     ``batch["image_embeds"]`` (B, n_image, patch_dim), the first n_image
     positions are the projected image embeddings instead."""
-    x = params["embed"]["table"][tokens].to(_dtype(cfg.compute_dtype))
+    table = params["embed"]["table"]
+    # a sharded table looks up through ``index_select``: DTensor (torch 2.11)
+    # fails to shard the ``index_put`` that the backward of ``table[tokens]`` is
+    x = (table.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, -1)
+         if isinstance(table, DTensor) else table[tokens]).to(_dtype(cfg.compute_dtype))
     if cfg.vlm is not None and batch is not None and "image_embeds" in batch:
         img = linear(params["vision_proj"], batch["image_embeds"].to(x.dtype))
         n_img, S = img.shape[1], x.shape[1]

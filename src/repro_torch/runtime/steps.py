@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.convert import flatten, unflatten
 from ..models.registry import ModelApi
@@ -97,7 +97,13 @@ def make_serve_step(api: ModelApi, greedy: bool = True) -> Callable:
     def serve_step(params, cache, token, pos):
         logits, cache = api.decode(params, cache, token, pos)
         if greedy:
-            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            last = logits[:, -1]
+            if isinstance(last, DTensor):
+                # the vocab whole on every rank, batch rows as they are: DTensor's
+                # argmax over a vocab dim cut over the mesh reshapes wrongly
+                last = last.redistribute(last.device_mesh, [
+                    p if p == Shard(0) else Replicate() for p in last.placements])
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
             return nxt[:, None], cache
         return logits, cache
 

@@ -119,21 +119,21 @@ def logical_spec(*logical_axes) -> P:
 
 def placements(spec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
-    mesh dim that tensor dim ``d`` names (a tuple such as ``("pod",
-    "data")`` shards one dim over several mesh dims, major first, which
-    must be the mesh's own order), ``Replicate()`` on the others.  A mesh
-    dim of size 1 holds the whole tensor either way and gets ``Replicate()``
-    (DTensor refuses to drop a size-1 tensor dim it thinks is sharded)."""
+    mesh dim that tensor dim ``d`` names, ``Replicate()`` on the others.  A
+    tuple such as ``("pod", "data")`` shards one dim over several mesh
+    dims, in any order: DTensor cuts a dim over its mesh dims in the mesh's
+    order, so ``("data", "model", "pod")`` (the reference's long-context
+    cache spec) lays the pieces on the devices in another order than XLA
+    does, with the same bytes on every rank.  A mesh dim of size 1 holds
+    the whole tensor either way and gets ``Replicate()`` (DTensor refuses
+    to drop a size-1 tensor dim it thinks is sharded)."""
     sizes = mesh_shape(mesh)
     names = list(sizes)
     out = [Replicate()] * len(names)
     for d, axes in enumerate(spec):
-        order = [names.index(a) for a in _names(axes) if a in names]
-        if order != sorted(order):
-            raise ValueError(f"placements: {axes!r} is not in the mesh's axis order {names}")
-        for i in order:
-            if sizes[names[i]] > 1:
-                out[i] = Shard(d)
+        for a in _names(axes):
+            if a in sizes and sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
     return tuple(out)
 
 

@@ -14,7 +14,13 @@ and against the unsharded port.
   4 decode steps under each ``moe_shard_constraints`` pin, rwkv6 and jamba
   under ``ssm_shard_constraints``, whisper decoding over its cross caches,
   the kernel boundary's GQA cases, the constraint itself, and the elastic
-  restore (mirroring tests/test_ckpt_data.py::test_elastic_restore_resharded).
+  restore (mirroring tests/test_ckpt_data.py::test_elastic_restore_resharded)
+  and the sharded save.
+* On a 1x4 mesh, 2 kv heads that the model axis does not divide; on a 1x2
+  mesh, one request decoding greedily over a sharded vocab.
+* The decode cell with ``pos`` a replicated 0-d tensor, as the dry run
+  places it, on KV caches cut over S_max (2x2 and 1x4), against the int
+  ``pos`` run.
 """
 
 import json
@@ -35,6 +41,7 @@ import torch.multiprocessing as mp  # noqa: E402
 from torch.distributed.tensor import (DTensor, Replicate, Shard,  # noqa: E402
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication  # noqa: E402
+from torch.multiprocessing.reductions import StorageWeakRef  # noqa: E402
 
 from repro_torch.ckpt import checkpoint as ckpt_module  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint  # noqa: E402
@@ -172,9 +179,12 @@ def _tokens(cfg, B, S, seed):
     return torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(seed))
 
 
-def _serve_case(mesh, arch, cfg, B=4, S=32, n_dec=4, seed=1):
+def _serve_case(mesh, arch, cfg, B=4, S=32, n_dec=4, seed=1, tensor_pos=False):
     """Prefill and ``n_dec`` greedy decode steps through the prefill and
-    decode cells, against the unsharded prefill and serve steps."""
+    decode cells, against the unsharded prefill and serve steps.  With
+    ``tensor_pos`` the decode cell also runs from a copy of the prefill's
+    caches with ``pos`` a replicated 0-d tensor (the decode cell's abstract
+    input), against the int ``pos`` run."""
     api = build(cfg, CPU)
     params = api.init(torch.Generator().manual_seed(0))
     batch = {"tokens": _tokens(cfg, B, S, seed)}
@@ -193,25 +203,34 @@ def _serve_case(mesh, arch, cfg, B=4, S=32, n_dec=4, seed=1):
     step = make_serve_step(api)
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     d_tok = distribute_like(tok, dec.in_shardings[2], mesh)
-    same = True
+    t_tok, t_cache = d_tok, tree_map(torch.clone, d_cache) if tensor_pos else None
+    same, t_same = True, True
     for i in range(n_dec):
         with torch.no_grad():
             tok, cache = step(params, cache, tok, S + i)
         d_tok, d_cache = dec.step_fn(dparams, d_cache, d_tok, S + i)
         same &= bool(torch.equal(_full(d_tok), tok))
+        if tensor_pos:
+            pos = distribute_like(torch.tensor(S + i, dtype=torch.int32),
+                                  dec.in_shardings[3], mesh)
+            t_tok, t_cache = dec.step_fn(dparams, t_cache, t_tok, pos)
+            t_same &= bool(torch.equal(_full(t_tok), _full(d_tok)))
     out["decode_tokens_equal"] = same
     out["decode_caches"] = max(_rel(d_cache[k], v) for k, v in cache.items())
+    if tensor_pos:
+        out["tensor_pos_tokens_equal"] = t_same
+        out["tensor_pos_caches"] = max(_rel(t_cache[k], _full(v)) for k, v in d_cache.items())
     return out
 
 
-def _train_case(mesh, tmp):
+def _train_case(mesh, tmp, **cfg_kw):
     """h2o-danube-3-4b scaled down (1 kv head under a 2-way model axis: the
-    kernel boundary's sliced GQA path) through the train cell: loss, every
-    gradient leaf and the grad norm against the unsharded step, and the
-    AdamW update against the unsharded AdamW applied to the gathered
-    sharded gradients."""
+    kernel boundary's sliced GQA path; ``cfg_kw`` overrides the config)
+    through the train cell: loss, every gradient leaf and the grad norm
+    against the unsharded step, and the AdamW update against the unsharded
+    AdamW applied to the gathered sharded gradients."""
     arch, B, S = "h2o-danube-3-4b", 4, 32
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, **cfg_kw)
     api = build(cfg, CPU)
     opt = OptimizerConfig(state_dtype="float32", warmup_steps=0, peak_lr=1e-3)
     batch = {"tokens": _tokens(cfg, B, S, 1), "labels": _tokens(cfg, B, S, 2)}
@@ -336,8 +355,32 @@ def _ckpt_cases(mesh, tmp):
               == r.to_local().numel() * r.to_local().element_size()
               for r in flatten(restored).values())
     d_state = distribute_like(state, cell.in_shardings[0], mesh)
-    save_checkpoint(d_state, PosixConnector(sharded_dir), "c", step=7, bundle_threshold=1024)
+    # the full leaves a rank holds at once while it saves (each gathered leaf's
+    # storage, alive or not when the next is gathered; a replicated leaf's full
+    # tensor is its own local tensor), and the host bytes it keeps
+    gathered, held_save, host_bytes = [], [0], [0]
+    full_tensor, snapshot = DTensor.full_tensor, ckpt_module.snapshot
+
+    def tracked_full(self, *args, **kw):
+        t = full_tensor(self, *args, **kw)
+        if any(p.is_shard() for p in self.placements):
+            held_save[0] = max(held_save[0], sum(not r.expired() for r in gathered) + 1)
+            gathered.append(StorageWeakRef(t.untyped_storage()))
+        return t
+
+    def tracked_snapshot(*args, **kw):
+        leaves = snapshot(*args, **kw)
+        host_bytes[0] += sum(len(leaf.data) for leaf in leaves if leaf.data is not None)
+        return leaves
+
+    DTensor.full_tensor, ckpt_module.snapshot = tracked_full, tracked_snapshot
+    try:
+        save_checkpoint(d_state, PosixConnector(sharded_dir), "c", step=7, bundle_threshold=1024)
+    finally:
+        DTensor.full_tensor, ckpt_module.snapshot = full_tensor, snapshot
     dist.barrier()
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, {"held": held_save[0], "host_bytes": host_bytes[0]})
     files = {}
     for root in (plain_dir, sharded_dir):
         base = os.path.join(root, "c")
@@ -348,12 +391,17 @@ def _ckpt_cases(mesh, tmp):
     return {"step": step, "restored_shards_match": shards_ok, "sharded_leaves": n_sharded,
             "shard_storage_own": own, "full_leaves_held_at_once": held[0],
             "leaves": len(flatten(restored)), "files": len(a),
+            "save_full_leaves_held_at_once": [r["held"] for r in per_rank],
+            "save_host_bytes": [r["host_bytes"] for r in per_rank],
+            "state_bytes": sum(t.numel() * t.element_size() for t in flatten(state).values()),
             "manifest_equal": a.get("step_7/manifest.json") == b.get("step_7/manifest.json"),
             "bytes_equal": a == b}
 
 
 def _dense_cases(mesh, tmp):
-    return {"train": _train_case(mesh, tmp), "gqa": _gqa_cases(mesh),
+    arch = "h2o-danube-3-4b"
+    return {"serve": _serve_case(mesh, arch, _cfg(arch), n_dec=2, tensor_pos=True),
+            "train": _train_case(mesh, tmp), "gqa": _gqa_cases(mesh),
             "constraint": _constraint_cases(mesh), "ckpt": _ckpt_cases(mesh, tmp)}
 
 
@@ -373,20 +421,40 @@ def _whisper_cases(mesh, tmp):
     return {arch: _serve_case(mesh, arch, _cfg(arch), S=16, n_dec=2)}
 
 
-FAMILIES = {"dense": _dense_cases, "moe": _moe_cases, "ssm": _ssm_cases,
-            "whisper": _whisper_cases}
+def _heads_cases(mesh, tmp):
+    """2 kv heads under a 4-wide model axis: the kv projections' output dim
+    is cut in 4 pieces that straddle heads, so it is resharded before the
+    split into heads (``layers.split_dim``); the KV caches (S_max 36) are
+    cut over S_max."""
+    arch = "h2o-danube-3-4b"
+    return {"serve": _serve_case(mesh, arch, _cfg(arch, n_kv_heads=2), tensor_pos=True),
+            "train": _train_case(mesh, tmp, n_kv_heads=2)}
+
+
+def _vocab_cases(mesh, tmp):
+    """One request of rwkv6 decoding greedily with its vocab cut over a
+    2-wide model axis."""
+    arch = "rwkv6-7b"
+    return {arch: _serve_case(mesh, arch, _cfg(arch), B=1, n_dec=2)}
+
+
+#: family -> (cases, the mesh's (n_data, n_model))
+FAMILIES = {"dense": (_dense_cases, (2, 2)), "moe": (_moe_cases, (2, 2)),
+            "ssm": (_ssm_cases, (2, 2)), "whisper": (_whisper_cases, (2, 2)),
+            "heads": (_heads_cases, (1, 4)), "vocab": (_vocab_cases, (1, 2))}
 
 
 def _rank_main(rank, world, port, family, tmp):
-    """One rank of a 4-rank gloo group: a 2x2 mesh, the family's cases;
-    rank 0 writes what it measured to ``tmp``/result.json."""
+    """One rank of a gloo group: the family's mesh and cases; rank 0
+    writes what it measured to ``tmp``/result.json."""
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
     try:
-        mesh = make_test_mesh(2, 2, device_type="cpu")
-        res = FAMILIES[family](mesh, tmp)
+        cases, shape = FAMILIES[family]
+        mesh = make_test_mesh(*shape, device_type="cpu")
+        res = cases(mesh, tmp)
         if rank == 0:
             with open(os.path.join(tmp, "result.json"), "w") as f:
                 json.dump(res, f)
@@ -402,7 +470,8 @@ def _free_port() -> int:
 
 def _spawn(family, tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp(family))
-    mp.spawn(_rank_main, args=(4, _free_port(), family, tmp), nprocs=4, join=True)
+    world = FAMILIES[family][1][0] * FAMILIES[family][1][1]
+    mp.spawn(_rank_main, args=(world, _free_port(), family, tmp), nprocs=world, join=True)
     with open(os.path.join(tmp, "result.json")) as f:
         return json.load(f)
 
@@ -425,6 +494,16 @@ def ssm(tmp_path_factory):
 @pytest.fixture(scope="module")
 def whisper(tmp_path_factory):
     return _spawn("whisper", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def heads(tmp_path_factory):
+    return _spawn("heads", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def vocab(tmp_path_factory):
+    return _spawn("vocab", tmp_path_factory)
 
 
 def test_train_step_loss_and_grad_norm(dense):
@@ -500,6 +579,16 @@ def test_sharded_save_byte_identical(dense):
     assert c["files"] > 3 and c["manifest_equal"] and c["bytes_equal"]
 
 
+def test_sharded_save_gathers_one_leaf_at_a_time(dense):
+    """A sharded save gathers, digests and copies one leaf at a time, as the
+    reference saves: no rank holds more than one full leaf at once, and
+    only rank 0, which writes, keeps host bytes (the state's, once).  Before,
+    every rank gathered every leaf, then copied all of them to its host."""
+    c = dense["ckpt"]
+    assert c["save_full_leaves_held_at_once"] == [1, 1, 1, 1]
+    assert c["save_host_bytes"] == [c["state_bytes"], 0, 0, 0]
+
+
 @pytest.mark.parametrize("pin", ["expert", "capacity"])
 def test_moe_prefill_decode_pinned(moe, pin):
     got = moe[pin]
@@ -514,6 +603,38 @@ def test_ssm_prefill_decode_constrained(ssm, arch):
     assert got["prefill_logits"] <= SHARD_RTOL and got["decode_caches"] <= SHARD_RTOL
     assert got["decode_tokens_equal"]
     assert got["cache_placements"]["ssm"] == ["S(2)", "S(3)"]  # batch, heads
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode", "train"])
+def test_kv_heads_not_dividing_model_axis(heads, step):
+    """2 kv heads on a 1x4 mesh (model = 4): prefill, a decode step and a
+    train step equal the unsharded port."""
+    serve, train = heads["serve"], heads["train"]
+    if step == "prefill":
+        assert serve["prefill_logits"] <= SHARD_RTOL
+    elif step == "decode":
+        assert serve["decode_tokens_equal"] and serve["decode_caches"] <= SHARD_RTOL
+    else:
+        assert train["loss"] <= SHARD_RTOL and train["grad_norm"] <= SHARD_RTOL
+        assert max(train["grads"].values()) <= SHARD_RTOL
+
+
+@pytest.mark.parametrize("family", ["dense", "heads"])
+def test_decode_tensor_pos_on_sequence_sharded_cache(family, request):
+    """The decode cell with ``pos`` a replicated 0-d tensor, as the dry run
+    places it, on KV caches cut over S_max (1 kv head under a 2-wide model
+    axis, 2 under a 4-wide one): every rank writes only the row it holds,
+    so tokens and caches equal the int ``pos`` run."""
+    got = request.getfixturevalue(family)["serve"]
+    assert "S(3)" in got["cache_placements"]["attn_k"]  # S_max cut over "model"
+    assert got["tensor_pos_tokens_equal"] and got["tensor_pos_caches"] <= SHARD_RTOL
+
+
+def test_greedy_decode_over_sharded_vocab(vocab):
+    """rwkv6, one request, its vocab cut over a 2-wide model axis: the
+    greedy tokens are the unsharded ones."""
+    got = vocab["rwkv6-7b"]
+    assert got["prefill_logits"] <= SHARD_RTOL and got["decode_tokens_equal"]
 
 
 def test_whisper_decode_over_cross_caches(whisper):

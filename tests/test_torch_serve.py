@@ -124,6 +124,31 @@ def test_prefill_decode_consistency(arch):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "whisper-medium"])
+def test_decode_pos_as_tensor(arch):
+    """``pos`` as a 0-d tensor (the decode cell's abstract input) gives the
+    int ``pos``'s logits and caches on the CPU, and on ``meta`` decodes
+    without reading its value on the host (before, RoPE's ``torch.full``
+    and the cache write called ``.item()``)."""
+    cfg = get_config(arch).scaled_down()
+    api = build(cfg, "cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    batch = _torch(_batch(cfg, 3))
+    with torch.inference_mode():
+        logits, cache, _ = api.prefill(params, batch, pad_to=S + 2)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        twin = {k: v.clone() for k, v in cache.items()}
+        by_int, cache = api.decode(params, cache, tok, S)
+        by_tensor, twin = api.decode(params, twin, tok, torch.tensor(S, dtype=torch.int32))
+    assert torch.equal(by_int, by_tensor)
+    assert all(torch.equal(cache[k], twin[k]) for k in cache)
+    meta = build(cfg, "meta")
+    out, _ = meta.decode(meta.abstract_params(), meta.make_cache(B, S + 2, abstract=True),
+                         torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                         torch.empty((), dtype=torch.int32, device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (B, 1, cfg.vocab_size)
+
+
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "rwkv6-7b", "granite-moe-1b-a400m",
                                   "jamba-1.5-large-398b", "whisper-medium",
                                   "llava-next-mistral-7b"])

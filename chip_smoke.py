@@ -118,20 +118,32 @@
    fp32 logits (within SHARDED_FP32_LIMIT) against the unsharded run, both
    prefills' walls and idle shares; then jamba scaled down in fp32 the same
    way (the scan and flash's fp32 path through ``local_map``);
-16. runs the port's pod-scale dry run of granite-moe-1b-a400m's train_4k
-   cell on the 16x16 mesh (``dryrun``: ``python -m
-   repro_torch.launch.dryrun`` in its own process, started beside the
-   build, its fake process group of 256 ranks kept away from
-   serve_sharded's real one) and prints its roofline terms against the
-   H100's datasheet figures, its seconds, and its counts over the same
-   cell's CPU reading under torch 2.13 (DRYRUN_CPU_READING: DTensor's
-   rules, and so the counts, differ between torch versions);
-17. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
-   port's ``cost_numbers`` for the same config and 2 x 2048 tokens) and
-   sets its FLOPs and bytes against ``roofline.hw.HW_H100`` beside the
-   step seconds and busy ms ``train_moe`` measured; checks that
-   ``HW_H100``'s 80 GB is within HBM_MATCH of the card's memory;
-18. prints one JSON line of per-kernel launches (by path), times and
+16. runs the sharding layer's CPU cases under this machine's torch
+   (``sharded_gloo``: pytest over GLOO_TESTS in its own process, started
+   beside the build): 4-rank gloo groups on the CPU, a 2x2 mesh for each
+   family (dense, rwkv6, jamba, granite-moe unpinned and under both pins,
+   whisper) and the 1x4 and 1x2 meshes, each family's sharded prefill,
+   decode and train steps against the unsharded port within 1e-5, no op
+   that torch 2.11's DTensor refuses, the dry run's 2x2x2 cells and the
+   peak live-bytes tracker; every case must pass.  CPU ranks, not the
+   card: NCCL puts no two ranks on one card;
+17. runs the port's pod-scale dry run of all 34 single-pod cells on the
+   16x16 mesh (``dryrun``: ``python -m repro_torch.launch.dryrun --all
+   --single-pod-only`` in its own process, started beside the build, its
+   fake process group of 256 ranks kept away from serve_sharded's real
+   one): every record ``ok`` with its temp bytes counted; DRYRUN_CELL's
+   roofline terms against the H100's datasheet figures, temps,
+   ``fits_hbm``, seconds, and its counts over the same cell's CPU reading
+   under torch 2.13 (DRYRUN_CPU_READING: DTensor's rules, and so the
+   counts, differ between torch versions);
+18. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
+   port's ``cost_numbers`` and peak live bytes for the same config and 2 x
+   2048 tokens) and sets its FLOPs and bytes against
+   ``roofline.hw.HW_H100`` beside the step seconds and busy ms
+   ``train_moe`` measured, and its peak beside the step's measured
+   ``torch.cuda.max_memory_allocated``; checks that ``HW_H100``'s 80 GB is
+   within HBM_MATCH of the card's memory;
+19. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -146,6 +158,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -319,14 +332,23 @@ MOE_TRAIN_FP32_LIMIT = 1e-3
 #: rank: every placement is trivial, so the runs should be bit-equal)
 SHARDED_WORKLOAD = (4, 512, 8)
 SHARDED_FP32_LIMIT = 1e-6
-#: the dry run's cell (single pod, 16x16) and its time limit, seconds
-DRYRUN_CELL, DRYRUN_TIMEOUT = (MOE_ARCH, "train_4k"), 600
+#: the dry run's cell whose counts are printed (single pod, 16x16), and the
+#: time limit of the dry run of all 34 single-pod cells, seconds
+DRYRUN_CELL, DRYRUN_TIMEOUT = (MOE_ARCH, "train_4k"), 900
+#: the sharding layer's CPU cases (no JAX) and their time limit, seconds
+GLOO_TESTS, GLOO_TIMEOUT = ("tests/test_torch_cells.py", "tests/test_torch_dryrun.py",
+                            "tests/test_torch_memory.py"), 900
+#: the counted peak live bytes of train_moe's step against the measured peak:
+#: the widest ratio allowed either way (a tracker that lost or double-counted
+#: storages would land far outside it)
+PEAK_MATCH = 2.0
 #: the same cell's counts a rank on a CPU under torch 2.13.0+cpu (PERF.md's
 #: dry-run table): the phase prints this run's counts over these, as DTensor's
 #: sharding rules, and so the counts, differ between torch versions
 DRYRUN_CPU_READING = {"torch": "2.13.0+cpu", "hlo_flops_per_dev": 24449503985664.0,
-                      "hlo_bytes_per_dev": 5442688116806.0,
-                      "coll_bytes_per_dev": 507047590148.0}
+                      "hlo_bytes_per_dev": 5380849556342.0,
+                      "coll_bytes_per_dev": 291556388996.0,
+                      "bytes_per_dev_temp": 45772304408.0}
 #: HW_H100's HBM bytes against the card's total memory: largest relative gap
 HBM_MATCH = 0.03
 
@@ -493,7 +515,7 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
             row["library_is_causal_ms"] = time_ms(causal_lib, torch)
             timed.append(("library_is_causal_device_ms", causal_lib))
         for key, fn in timed:
-            kernels, n, _, _, _ = profile_device(
+            kernels, n, *_ = profile_device(
                 torch, lambda: [fn() for _ in range(PROFILED_CALLS)],
                 complete=lambda counts: counts and all(
                     c % PROFILED_CALLS == 0 for c in counts.values()))
@@ -558,7 +580,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
             reset_flash_counts(fa_kernel)
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
             pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
-            by_name, pre_n, _, _, _ = profile_device(
+            by_name, pre_n, *_, pre_union, pre_pwall = profile_device(
                 torch, prefill, complete=lambda counts: sum(
                     c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
         check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
@@ -595,7 +617,7 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
                "decode_s": res["decode_s"], "prefill_tok_s": res["prefill_tok_s"],
                "decode_tok_s": res["decode_tok_s"], "max_memory_allocated": peak_mem,
                "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
-                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   **idle_of(pre_union, pre_pwall), "kernels": pre_n,
                                    "flash_kernel_ms": pre_fa,
                                    "flash_kernel_share_of_busy": pre_fa / pre_busy,
                                    "flash_tma_launches": pre_tma // 3,
@@ -864,7 +886,7 @@ def ssm_times(torch, ssm_kernel, ssm_ref, device, plain=True, cases=SSM_MAIN_CAS
         ms = time_ms(call, torch)
         # the mean over the launches the profiler recorded: at mamba's shapes it
         # kept 18 of 20 records in five runs of one call (H100, torch 2.11)
-        kernels, records, _, _, _ = profile_device(
+        kernels, records, *_ = profile_device(
             torch, lambda: [call() for _ in range(PROFILED_CALLS)],
             complete=lambda counts: bool(counts) and all("ssm_scan_kernel" in n for n in counts)
             and sum(counts.values()) >= PROFILED_CALLS // 2)
@@ -892,17 +914,23 @@ def profile_device(torch, fn, spans=(), complete=None):
     named in ``spans``, which are kept out of the kernels.  A span's device
     ms is its extent on the device's timeline, idle gaps included; the
     kernel ms inside it sums the kernels that start within that extent
-    (one stream), its busy time.  The device's busy time is the sum of the
-    kernels'.  The profiler can drop kernel records of a run; with
-    ``complete``, a predicate on {kernel name: records}, the run is repeated
-    until the records pass it, PROFILE_TRIES times at most."""
+    (one stream), its busy time.  The last two are the device's busy ms,
+    the union of the kernels' intervals (kernels that overlap count once),
+    and the host wall ms of the same profiled call, to its synchronise:
+    an idle share from one run, which cannot read negative as busy time
+    from one run over the wall of others could.  The profiler can drop
+    kernel records of a run; with ``complete``, a predicate on {kernel
+    name: records}, the run is repeated until the records pass it,
+    PROFILE_TRIES times at most."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_TRIES):
         with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
         kernels, counts, span_ms = {}, {}, {r: 0.0 for r in spans}
-        extents, starts = {r: [] for r in spans}, []
+        extents, starts, intervals = {r: [] for r in spans}, [], []
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 ms = ev.time_range.elapsed_us() / 1e3
@@ -913,6 +941,7 @@ def profile_device(torch, fn, spans=(), complete=None):
                     kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
                     counts[ev.name] = counts.get(ev.name, 0) + 1
                     starts.append((ev.time_range.start, ms))
+                    intervals.append((ev.time_range.start, ev.time_range.end))
         if complete is None or complete(counts):
             break
     else:
@@ -923,7 +952,18 @@ def profile_device(torch, fn, spans=(), complete=None):
                 for avg in prof.key_averages() if avg.key in span_ms}
     busy_in = {r: sum(ms for at, ms in starts if any(a <= at < b for a, b in extents[r]))
                for r in spans}
-    return kernels, sum(counts.values()), span_ms, cpu_side, busy_in
+    union_us, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        union_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return kernels, sum(counts.values()), span_ms, cpu_side, busy_in, union_us / 1e3, wall
+
+
+def idle_of(busy_union_ms, profiled_wall_ms) -> dict:
+    """The idle share of one profiled call: 1 - its kernels' union over its
+    own wall (``profile_device``'s last two values)."""
+    return {"profiled_wall_ms": profiled_wall_ms, "device_busy_union_ms": busy_union_ms,
+            "idle_share": 1.0 - busy_union_ms / profiled_wall_ms}
 
 
 def wall_ms(torch, fn, reps):
@@ -1020,13 +1060,14 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
             check(n_pre == cfg.n_layers and n_dec == 0,
                   f"scan launches: {n_pre} in a prefill, {n_dec} in a decode step")
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
-            by_name, pre_n, _, _, _ = profile_device(
+            by_name, pre_n, *_, pre_union, pre_pwall = profile_device(
                 torch, prefill, complete=lambda counts: sum(
                     c for name, c in counts.items() if "ssm_scan_kernel" in name) == cfg.n_layers)
             pre_busy = sum(by_name.values())
             pre_ssm = sum(ms for name, ms in by_name.items() if "ssm_scan_kernel" in name)
             dec_wall = statistics.median(wall_ms(torch, lambda: step(params, cache, tok, S), 8))
-            by_name, dec_n, _, _, _ = profile_device(torch, lambda: step(params, cache, tok, S))
+            by_name, dec_n, *_, dec_union, dec_pwall = profile_device(
+                torch, lambda: step(params, cache, tok, S))
             dec_busy = sum(by_name.values())
             del lg, cache
 
@@ -1067,12 +1108,12 @@ def serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
                "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
                "max_memory_allocated": peak_mem,
                "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
-                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   **idle_of(pre_union, pre_pwall), "kernels": pre_n,
                                    "ssm_kernel_ms": pre_ssm,
                                    "ssm_kernel_share_of_busy": pre_ssm / pre_busy},
                "decode_step_profile": {"wall_ms_unprofiled": dec_wall,
                                        "device_busy_ms": dec_busy,
-                                       "idle_share": 1.0 - dec_busy / dec_wall,
+                                       **idle_of(dec_union, dec_pwall),
                                        "kernels": dec_n},
                "fp32_max_abs_logit_diff_kernel_vs_plain": diff32,
                "fp32_logit_limit": FP32_LOGIT_LIMIT,
@@ -1199,7 +1240,7 @@ def serve_moe(torch, serve, build, kernels, device):
             reset_flash_counts(fa_kernel)
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
             pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
-            by_name, pre_n, _, _, _ = profile_device(
+            by_name, pre_n, *_, pre_union, pre_pwall = profile_device(
                 torch, prefill, MOE_RANGES, complete=lambda counts: sum(
                     c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == cfg.n_layers)
         check(pre_all == pre_tma == 3 * cfg.n_layers and pre_sync == 0,
@@ -1248,7 +1289,7 @@ def serve_moe(torch, serve, build, kernels, device):
                "prefill_tok_s": res["prefill_tok_s"], "decode_tok_s": res["decode_tok_s"],
                "max_memory_allocated": peak_mem,
                "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
-                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   **idle_of(pre_union, pre_pwall), "kernels": pre_n,
                                    "flash_kernel_ms": pre_fa,
                                    "flash_kernel_share_of_busy": pre_fa / pre_busy,
                                    "flash_tma_launches": pre_tma // 3,
@@ -1440,13 +1481,13 @@ def mamba_layer(torch, kernels, ssm_ops, ssm_ref, device):
             # the layer's prefill: wall time, device busy time, the scan's share
             layer = lambda: tf.mamba_apply(p, x, cfg)
             wall = statistics.median(wall_ms(torch, layer, 3))
-            by_name, n_kernels, _, _, _ = profile_device(
+            by_name, n_kernels, *_, union, pwall = profile_device(
                 torch, layer, complete=lambda counts: sum(
                     c for n, c in counts.items() if "ssm_scan_kernel" in n) == 1)
         busy = sum(by_name.values())
         scan_ms = sum(ms for n, ms in by_name.items() if "ssm_scan_kernel" in n)
         row["prefill_profile"] = {"wall_ms_unprofiled": wall, "device_busy_ms": busy,
-                                  "idle_share": 1.0 - busy / wall, "kernels": n_kernels,
+                                  **idle_of(union, pwall), "kernels": n_kernels,
                                   "scan_kernel_ms": scan_ms,
                                   "scan_kernel_share_of_busy": scan_ms / busy,
                                   "tokens_per_s": B * T / wall * 1e3}
@@ -1631,7 +1672,7 @@ def serve_whisper(torch, serve, build, kernels, device):
             reset_flash_counts(fa_kernel)
             pre_wall = statistics.median(wall_ms(torch, prefill, 3))
             pre_all, pre_tma, pre_sync, _ = flash_counts(fa_kernel)  # 3 prefills
-            by_name, pre_n, span_ms, _, busy_in = profile_device(
+            by_name, pre_n, span_ms, _, busy_in, pre_union, pre_pwall = profile_device(
                 torch, prefill, spans=spans, complete=lambda counts: sum(
                     c for name, c in counts.items() if "attn_fwd_bf16_tma" in name) == per_prefill)
         check(pre_all == pre_tma == 3 * per_prefill and pre_sync == 0,
@@ -1676,7 +1717,7 @@ def serve_whisper(torch, serve, build, kernels, device):
                "prefill_audio_frames_s": B * frames / res["prefill_s"],
                "decode_tok_s": res["decode_tok_s"], "max_memory_allocated": peak_mem,
                "prefill_profile": {"wall_ms_unprofiled": pre_wall, "device_busy_ms": pre_busy,
-                                   "idle_share": 1.0 - pre_busy / pre_wall, "kernels": pre_n,
+                                   **idle_of(pre_union, pre_pwall), "kernels": pre_n,
                                    "flash_kernel_ms": pre_fa,
                                    "flash_kernel_share_of_busy": pre_fa / pre_busy,
                                    "flash_tma_launches": pre_tma // 3,
@@ -2075,7 +2116,7 @@ def train_profile(torch, s, state, batch, fa_kernel):
     walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
     wall = statistics.median(walls)
     ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
-    kernels, n_launches, spans, cpu_side, busy_in = profile_device(
+    kernels, n_launches, spans, cpu_side, busy_in, union, pwall = profile_device(
         torch, lambda: step_fn(state, batch), ranges)
     fa_counts = flash_counts(fa_kernel)
     want = 2 * cfg.n_layers * (WARM_STEPS + 2)
@@ -2100,7 +2141,7 @@ def train_profile(torch, s, state, batch, fa_kernel):
            "min_step_s": min(walls), "max_step_s": max(walls),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
            "wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
-           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),
+           **idle_of(union, pwall), "kernels": len(kernels),
            "kernel_launches": n_launches, "flash_launches": fa_counts[0],
            "flash_mma_sync_launches": fa_counts[2],
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
@@ -2252,7 +2293,7 @@ def train_rwkv(torch, launch_train, kernels, ssm_ops, ssm_ref, device):
         check(warm_ssm == 2 * cfg.n_layers * (WARM_STEPS + 1),
               f"{warm_ssm} scan launches in {WARM_STEPS + 1} steps")
         ranges = ("train_step/loss_and_grad", "train_step/adamw", "ssm_scan/plain_backward")
-        by_name, n_launches, spans, cpu_side, busy_in = profile_device(
+        by_name, n_launches, spans, cpu_side, busy_in, union, pwall = profile_device(
             torch, lambda: step_fn(state, batch), ranges, complete=lambda counts: sum(
                 c for n, c in counts.items() if "ssm_scan_kernel" in n) == 2 * cfg.n_layers)
         prof_ssm = ssm_kernel.launches - warm_ssm
@@ -2277,7 +2318,7 @@ def train_rwkv(torch, launch_train, kernels, ssm_ops, ssm_ref, device):
                "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
                "profile": {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
-                           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(by_name),
+                           **idle_of(union, pwall), "kernels": len(by_name),
                            "kernel_launches": n_launches,
                            "scan_kernel_ms": scan_ms, "plain_scan_backward_ms": bwd_ms,
                            "adamw_ms": adamw_ms, "rest_ms": busy - scan_ms - bwd_ms - adamw_ms,
@@ -2436,12 +2477,22 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         wall = statistics.median(walls)
         ranges = ("train_step/loss_and_grad", "train_step/adamw",
                   "flash_attention/plain_backward", *MOE_RANGES)
-        by_name, n_launches, spans, cpu_side, busy_in = profile_device(
+        by_name, n_launches, spans, cpu_side, busy_in, union, pwall = profile_device(
             torch, lambda: step_fn(state, batch), ranges, complete=lambda counts: sum(
                 c for n, c in counts.items() if "attn_fwd_bf16_tma" in n) == n_step)
         check(all(math.isfinite(t.float().sum().item()) for t in flatten(state).values()),
               "non-finite training state after the warm steps")
         peak_mem = torch.cuda.max_memory_allocated(device)
+        # one more step, its peak above what was allocated before it: the
+        # counterpart of the roofline phase's peak live bytes above the arguments
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        step_fn(state, batch)
+        torch.cuda.synchronize(device)
+        step_max = torch.cuda.max_memory_allocated(device)
+        step_memory = {"allocated_before": before, "max_allocated": step_max,
+                       "peak_above_allocated": step_max - before}
         busy = sum(by_name.values())
         fa_ms = sum(ms for n, ms in by_name.items() if "attn_fwd" in n)
         split = {"flash_forward_ms": fa_ms,
@@ -2472,12 +2523,12 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
                "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
                "profile": {"wall_ms_unprofiled": wall * 1e3, "device_busy_ms": busy,
-                           "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(by_name),
+                           **idle_of(union, pwall), "kernels": len(by_name),
                            "kernel_launches": n_launches, **split,
                            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
                            "device_busy_ms_in_range": busy_in,
                            "top_kernels_ms": {n[:80]: ms for n, ms in top}},
-               "max_memory_allocated": peak_mem,
+               "max_memory_allocated": peak_mem, "step_memory": step_memory,
                "save": {"leaves": n_leaves, "objects": len(manifest["objects"]),
                         "checksum_launches": cs_kernel.launches, "seconds": save_s}}
         emit({"phase": "train_moe", **row})
@@ -2568,12 +2619,12 @@ def sharded_case(torch, kernels, mesh, arch, cfg, params, dparams, batch, n_dec,
         prof = {}
         for name, fn in (("unsharded", unsharded), ("sharded", sharded)):
             with torch.inference_mode() if name == "unsharded" else contextlib.nullcontext():
-                by_name, n, _, _, _ = profile_device(
+                by_name, n, *_, union, pwall = profile_device(
                     torch, fn, MOE_RANGES, complete=lambda counts: sum(
                         c for k, c in counts.items() if "attn_fwd" in k) == fa_pre[0])
             busy, wall = sum(by_name.values()), statistics.median(walls[name])
             prof[name] = {"wall_ms": walls[name], "wall_ms_median": wall,
-                          "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                          "device_busy_ms": busy, **idle_of(union, pwall),
                           "kernels": n, "top_kernels_ms": {k[:80]: v for k, v in sorted(
                               by_name.items(), key=lambda kv: -kv[1])[:6]}}
         prof["host_ms_added"] = (prof["sharded"]["wall_ms_median"]
@@ -2695,48 +2746,121 @@ def serve_sharded(torch, kernels, ckpt_dir, trained, device):
         dist.destroy_process_group()
 
 
+def background(argv, log_path):
+    """``argv`` in a process group of its own at the lowest CPU priority,
+    output to ``log_path``: the phases' host work goes first."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    with open(log_path, "w") as log:
+        return subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                                start_new_session=True, preexec_fn=lambda: os.nice(19))
+
+
 def start_dryrun(results_dir):
-    """The port's dry run of DRYRUN_CELL on the 16x16 mesh, started in its
-    own process: its fake process group must not meet serve_sharded's real
-    one.  It needs no device, so it runs beside the build and the phases."""
-    arch, shape = DRYRUN_CELL
-    env = dict(os.environ, PYTHONPATH=SRC)
-    with open(os.path.join(results_dir, "dryrun.log"), "w") as log:
-        return subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-             shape, "--single-pod-only", "--results-dir", results_dir],
-            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    """The port's dry run of every single-pod cell on the 16x16 mesh,
+    started in its own process: its fake process group must not meet
+    serve_sharded's real one.  It needs no device, so it runs beside the
+    build and the phases."""
+    return background([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                       "--single-pod-only", "--results-dir", results_dir],
+                      os.path.join(results_dir, "dryrun.log"))
+
+
+def start_sharded_gloo(results_dir):
+    """pytest over GLOO_TESTS in its own process, beside the build: the
+    sharding layer's gloo groups on the machine's CPU (ROADMAP C15)."""
+    return background([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                       *GLOO_TESTS, "-k", "not match_reference", "--junitxml",
+                       os.path.join(results_dir, "gloo.xml")],
+                      os.path.join(results_dir, "gloo.log"))
+
+
+def stop(proc) -> None:
+    """Kills ``proc``'s process group (pytest's spawned ranks with it)."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def wait_for(proc, limit, t0, what):
+    """Waits for ``proc``, started at ``t0``, ``limit`` seconds at most."""
+    try:
+        proc.wait(timeout=max(1.0, limit - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop(proc)
+        raise SmokeFailure(f"{what} took more than {limit} s")
+    return time.perf_counter() - t0
+
+
+def sharded_gloo_phase(proc, results_dir, t0, torch_version):
+    """Waits for ``start_sharded_gloo``'s pytest; every case must pass."""
+    import xml.etree.ElementTree as ET
+    seconds = wait_for(proc, GLOO_TIMEOUT, t0, "the gloo cases")
+    with open(os.path.join(results_dir, "gloo.log")) as f:
+        tail = f.read().splitlines()[-12:]
+    outcome, own = {}, None
+    xml_path = os.path.join(results_dir, "gloo.xml")
+    if os.path.exists(xml_path):
+        root = ET.parse(xml_path).getroot()
+        own = sum(float(suite.get("time", 0)) for suite in root.iter("testsuite"))
+        for case in root.iter("testcase"):
+            kind = next((c.tag for c in case if c.tag in ("failure", "error", "skipped")),
+                        "passed")
+            outcome[f"{case.get('classname', '').split('.')[-1]}::{case.get('name')}"] = kind
+    bad = {k: v for k, v in outcome.items() if v != "passed"}
+    row = {"ranks": "CPU processes of gloo groups, not the card", "torch": torch_version,
+           "files": list(GLOO_TESTS), "passed": len(outcome) - len(bad), "not_passed": bad,
+           "pytest_seconds": own, "waited_until_s": seconds, "cases": outcome}
+    check(proc.returncode == 0 and outcome and not bad,
+          f"the gloo cases failed (exit {proc.returncode}): {bad} | {' | '.join(tail)}")
+    emit({"phase": "sharded_gloo", **row})
+    return row
 
 
 def dryrun_phase(proc, results_dir, t0, torch_version):
-    """Waits for ``start_dryrun``'s process; its roofline terms and seconds,
-    and its counts over DRYRUN_CPU_READING's."""
-    try:
-        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise SmokeFailure(f"the dry run took more than {DRYRUN_TIMEOUT} s")
+    """Waits for ``start_dryrun``'s process: every single-pod cell ``ok``
+    with its temps counted; DRYRUN_CELL's roofline terms, memory and
+    seconds, and its counts over DRYRUN_CPU_READING's."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.common import cells_for
+    seconds = wait_for(proc, DRYRUN_TIMEOUT, t0, "the dry run")
     with open(os.path.join(results_dir, "dryrun.log")) as f:
         out = f.read()
     lines = [ln for ln in out.splitlines() if "]:W" not in ln]
     check(proc.returncode == 0 and "ALL DRY-RUN CELLS PASSED" in out,
           f"the dry run failed (exit {proc.returncode}): {' | '.join(lines[-8:])}")
+    cells = {}
+    for arch in ARCH_IDS:
+        for shape in cells_for(arch):
+            with open(os.path.join(results_dir, f"dryrun_{arch}_{shape}_16x16.json")) as f:
+                rec = json.load(f)
+            cells[f"{arch} x {shape}"] = rec
+    summary = {name: {k: rec.get(k) for k in ("ok", "t_compute", "t_memory", "t_collective",
+                                              "bottleneck", "useful_ratio",
+                                              "bytes_per_dev_argument", "bytes_per_dev_temp",
+                                              "fits_hbm", "seconds")}
+               for name, rec in cells.items()}
+    check(len(cells) == 34 and all(r["ok"] and r["bytes_per_dev_temp"] is not None
+                                   and r["bytes_per_dev_temp"] > 0 for r in cells.values()),
+          f"dry-run records not ok or without temps: "
+          f"{[n for n, r in cells.items() if not r['ok'] or not r['bytes_per_dev_temp']]}")
     arch, shape = DRYRUN_CELL
-    with open(os.path.join(results_dir, f"dryrun_{arch}_{shape}_16x16.json")) as f:
-        rec = json.load(f)
+    rec = cells[f"{arch} x {shape}"]
     row = {"cell": f"{arch} x {shape} @ 16x16",
-           "terms": next(ln.strip() for ln in lines if "-bound;" in ln),
+           "terms": next(ln.strip() for ln in lines if f"{arch} x {shape} [16x16]" in ln),
            **{k: rec[k] for k in ("ok", "hw", "n_devices", "hlo_flops_per_dev",
                                   "hlo_bytes_per_dev", "coll_bytes_per_dev", "t_compute",
                                   "t_memory", "t_collective", "bottleneck", "useful_ratio",
                                   "peak_fraction", "bytes_per_dev_argument",
-                                  "bytes_per_dev_output", "fits_hbm", "lower_seconds",
-                                  "count_seconds", "seconds")},
+                                  "bytes_per_dev_temp", "bytes_per_dev_output", "fits_hbm",
+                                  "lower_seconds", "count_seconds", "seconds")},
            "coll_count": rec["coll_detail"]["count"], "torch": torch_version,
            "over_cpu_reading": {k: rec[k] / v for k, v in DRYRUN_CPU_READING.items()
                                 if k != "torch"},
-           "cpu_reading_torch": DRYRUN_CPU_READING["torch"]}
+           "cpu_reading_torch": DRYRUN_CPU_READING["torch"],
+           "cells_ok": sum(r["ok"] for r in cells.values()),
+           "cells_fit_hbm": sum(bool(r["fits_hbm"]) for r in cells.values()),
+           "cells_seconds": sum(r["seconds"] for r in cells.values()),
+           "waited_until_s": seconds, "cells": summary}
     check(row["ok"] and row["hlo_flops_per_dev"] > 0 and row["coll_bytes_per_dev"] > 0,
           f"the dry run's record {row}")
     emit({"phase": "dryrun", **row})
@@ -2746,21 +2870,29 @@ def dryrun_phase(proc, results_dir, t0, torch_version):
 def roofline_phase(torch, moe_row):
     """``train_moe``'s step counted on ``meta`` (the same config, 2 x 2048
     tokens, one card, so no collectives) and set against HW_H100 beside the
-    step's measured seconds and busy ms.  On ``meta`` the flash forward is
-    counted as the plain chunked form the dispatcher runs there."""
+    step's measured seconds and busy ms, and its peak live bytes above the
+    train state and batch beside the same step's measured peak above what
+    was allocated before it, and with the state's bytes beside the phase's
+    ``max_memory_allocated``.  On ``meta`` the flash forward is counted as
+    the plain chunked form the dispatcher runs there."""
     from repro_torch.configs import get_config
     from repro_torch.models.common import ShapeConfig
     from repro_torch.models.registry import build, train_batch_specs
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.roofline import HW_H100, CostCounter, cost_numbers, model_flops
+    from repro_torch.models.convert import flatten
+    from repro_torch.roofline import HW_H100, CostCounter, LiveBytes, cost_numbers, model_flops
     from repro_torch.runtime.steps import abstract_train_state, make_train_step
     cfg = get_config(MOE_ARCH)
     shape = ShapeConfig("train_moe", TRAIN_SEQ, TRAIN_BATCH, "train")
     api, opt = build(cfg, "meta"), OptimizerConfig(state_dtype="float32")
+    state, batch = abstract_train_state(api, opt), train_batch_specs(cfg, shape)
+    args = sum(t.numel() * t.element_size()
+               for t in (*flatten(state).values(), *batch.values()))
     t0 = time.perf_counter()
-    with CostCounter() as counter:
-        make_train_step(api, opt)(abstract_train_state(api, opt), train_batch_specs(cfg, shape))
+    with CostCounter() as counter, LiveBytes() as live:
+        make_train_step(api, opt)(state, batch)
     nums, count_s = cost_numbers(counter.record()), time.perf_counter() - t0
+    mem = moe_row["step_memory"]
     mf = model_flops(cfg, shape)
     step_s, busy_ms = moe_row["median_step_s"], moe_row["profile"]["device_busy_ms"]
     total = torch.cuda.get_device_properties(0).total_memory
@@ -2773,9 +2905,17 @@ def roofline_phase(torch, moe_row):
            "achieved_share_of_peak": nums["flops"] / step_s / HW_H100.peak_flops_bf16,
            "model_flops_share_of_peak": mf / step_s / HW_H100.peak_flops_bf16,
            "busy_share_of_peak": nums["flops"] / (busy_ms / 1e3) / HW_H100.peak_flops_bf16,
-           "hbm_bytes": HW_H100.hbm_bytes, "device_total_memory": total}
+           "hbm_bytes": HW_H100.hbm_bytes, "device_total_memory": total,
+           "counted_argument_bytes": args, "counted_peak_above_arguments": live.peak,
+           "measured_step_peak_above_allocated": mem["peak_above_allocated"],
+           "peak_ratio": live.peak / mem["peak_above_allocated"],
+           "counted_total_bytes": args + live.peak,
+           "measured_max_memory_allocated": moe_row["max_memory_allocated"],
+           "total_ratio": (args + live.peak) / moe_row["max_memory_allocated"]}
     check(abs(HW_H100.hbm_bytes - total) <= HBM_MATCH * total,
           f"HW_H100.hbm_bytes {HW_H100.hbm_bytes} against the card's {total}")
+    check(1 / PEAK_MATCH <= row["peak_ratio"] <= PEAK_MATCH,
+          f"counted peak {live.peak} bytes against the measured {mem['peak_above_allocated']}")
     check(nums["flops"] >= mf and nums["coll"]["total"] == 0,
           f"counted {nums['flops']} FLOPs against the model's {mf}, "
           f"collectives {nums['coll']}")
@@ -2824,9 +2964,15 @@ def main() -> int:
           "peak_bytes_per_s": PEAK_BYTES_PER_S, "peak_bf16_flops": PEAK_BF16_FLOPS,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    for path in GLOO_TESTS:
+        if not os.path.exists(os.path.join(ROOT, path)):
+            print(f"chip_smoke: no {path} beside {__file__}", file=sys.stderr)
+            return 2
     dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    gloo_dir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     t_dryrun = time.perf_counter()
     dryrun = start_dryrun(dryrun_dir)
+    gloo = start_sharded_gloo(gloo_dir)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc per source
         logs = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
@@ -2870,17 +3016,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
         del trained
+        sharded_gloo_phase(gloo, gloo_dir, t_dryrun, torch.__version__)
         dryrun_phase(dryrun, dryrun_dir, t_dryrun, torch.__version__)
         roofline_phase(torch, moe_row)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     finally:
-        if dryrun.poll() is None:
-            dryrun.kill()
-            dryrun.wait()
+        for proc in (dryrun, gloo):
+            stop(proc)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(dryrun_dir, ignore_errors=True)
+        shutil.rmtree(gloo_dir, ignore_errors=True)
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),

@@ -25,17 +25,16 @@ v and backpropagates through it, on either device; it launches no kernel.
 Sharded inputs (``DTensor``s, once a cell's params are distributed) go
 through ``local_map``: neither the kernel nor ``FlashAttention`` knows
 DTensor, so each rank runs it, the kernel on CUDA or the plain form on
-the CPU, on its local batch rows and heads (``_local_heads``).
+the CPU, on its local batch rows and heads (``sharding.rules.local_heads``).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Shard
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor import DTensor
 
 from . import kernel
-from ...sharding.rules import layout, lift, shard_dims
+from ...sharding.rules import local_heads
 from .ref import chunked_attention
 
 #: KV chunk of the CPU path of ``flash_attention`` (the TPU kernel's block)
@@ -78,62 +77,18 @@ class FlashAttention(torch.autograd.Function):
         return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None, None
 
 
-def _coord(mesh, dims) -> int:
-    """This rank's linear index over the mesh dims ``dims``, major first
-    (the order in which DTensor cuts a dim sharded over several)."""
-    coord, r = mesh.get_coordinate(), 0
-    for i in dims:
-        r = r * mesh.size(i) + coord[i]
-    return r
-
-
-def _local_heads(q, k, v, attend):
-    """``attend(q, k, v)`` on each rank's local tensors through ``local_map``.
-
-    Batch rows keep q's ``Shard(0)`` and query heads its ``Shard(2)``; every
-    other mesh dim is replicated (the kernel needs whole sequences).  Key /
-    value heads follow the query heads' sharding when the mesh dims divide
-    them.  When they do not (``kv_heads`` under a model axis it does not
-    divide, so ``physical_for_dim`` dropped it), k and v stay replicated and
-    each rank passes the kernel the one kv head its query heads read (local
-    head ``h`` reads kv head ``h // G`` only within that slice); their
-    gradient is then a partial sum over those mesh dims.  If the local query
-    heads straddle two kv heads, the query heads are replicated instead."""
-    mesh, (q, k, v) = lift(q, k, v)
-    H, KV = q.shape[2], k.shape[2]
-    G = H // KV
-    bdims, _ = shard_dims(q, 0)
-    hdims, nh = shard_dims(q, 2)
-    sliced = bool(hdims) and KV % nh != 0
-    if sliced and G % (H // nh):
-        hdims, sliced = [], False
-    qp = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Shard(2)))
-    kp = layout(mesh.ndim, (bdims, Shard(0)), ([] if sliced else hdims, Shard(2)))
-    kgrad = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Partial() if sliced else Shard(2)))
-
-    def local(ql, kl, vl):
-        if sliced:
-            j = _coord(mesh, hdims) * (H // nh) // G
-            kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
-        return attend(ql, kl, vl)
-
-    return local_map(local, out_placements=list(qp), in_placements=(qp, kp, kp),
-                     in_grad_placements=(qp, kgrad, kgrad), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v)
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) -> (B, Sq, H, dh)."""
     attend = lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, CPU_CHUNK)
     if any(isinstance(t, DTensor) for t in (q, k, v)):
-        return _local_heads(q, k, v, attend)
+        return local_heads(q, k, v, attend)
     return attend(q, k, v)
 
 
 def flash_attention_auto(q, k, v, *, causal, window, cfg):
     """Model-layer attention: the kernel on CUDA, and on the CPU the
     reference's default chunked path with its ``cfg.attn_chunk`` and
-    ``cfg.attn_accum_bf16``; ``DTensor``s through ``_local_heads``.  The
+    ``cfg.attn_accum_bf16``; ``DTensor``s through ``local_heads``.  The
     reference's ``attn_shard_constraints`` pin of the KV chunks has no
     counterpart here: the layer pins k and v before this call, and a rank
     computes on its local tensors, where a pin is the identity."""
@@ -141,5 +96,5 @@ def flash_attention_auto(q, k, v, *, causal, window, cfg):
     attend = lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, chunk,
                                                   cfg.attn_accum_bf16)
     if any(isinstance(t, DTensor) for t in (q, k, v)):
-        return _local_heads(q, k, v, attend)
+        return local_heads(q, k, v, attend)
     return attend(q, k, v)

@@ -14,8 +14,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ...sharding.rules import logical_constraint
+from ...sharding.rules import local_heads, logical_constraint
 
 
 def _mask(q_pos, k_pos, *, causal, window):
@@ -52,10 +53,15 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
     reference's ``attn_accum_bf16``) takes P.V and the accumulator in
     bf16, as the reference's chunked path does.  ``shard_constrain`` pins
     k and v to (batch, kv_heads) under the active sharding rules, as the
-    reference pins its KV chunks."""
+    reference pins its KV chunks.  ``DTensor``s run it on each rank's local
+    batch rows and heads (``sharding.rules.local_heads``)."""
     if shard_constrain:
         k = logical_constraint(k, "batch", None, "kv_heads", None)
         v = logical_constraint(v, "batch", None, "kv_heads", None)
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return local_heads(q, k, v, lambda q, k, v: chunked_attention(
+            q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset,
+            accum_bf16=accum_bf16))
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV

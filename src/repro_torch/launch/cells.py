@@ -17,7 +17,8 @@ reference jits, lowers and compiles the cell; PyTorch runs eagerly, so
 here the cell's abstract inputs are placed as ``DTensor``s whose local
 shards are ``meta`` tensors, and the step runs once on them under
 ``roofline.CostCounter``, which counts each rank's FLOPs, bytes and
-collectives.  On a fake process group of the production mesh's size
+collectives, and ``roofline.LiveBytes``, which keeps the peak of the
+bytes it holds above its arguments (the temps of ``memory_analysis``).  On a fake process group of the production mesh's size
 (256 or 512 ranks in one process) that is the reference's pod-scale dry
 run without a device.
 """
@@ -39,6 +40,7 @@ from ..models.convert import flatten, tree_map
 from ..models.registry import build, decode_specs, prefill_batch_specs, train_batch_specs
 from ..optim import OptimizerConfig
 from ..roofline.analysis import CostCounter
+from ..roofline.memory import LiveBytes
 from ..runtime.steps import (abstract_train_state, make_prefill_step, make_serve_step,
                              make_train_step)
 from ..sharding.rules import (P, AxisRules, axis_rules, batch_spec, mesh_shape,
@@ -298,24 +300,30 @@ def place_abstract(tree, shardings, mesh):
 @dataclass
 class MemoryAnalysis:
     """The counterpart of a compiled cell's ``memory_analysis()``, per rank:
-    argument and output bytes from the cell's placements.  Eager execution
-    has no temp buffers to read, so ``temp_size_in_bytes`` is ``None``."""
+    argument and output bytes from the cell's placements, and the temps,
+    the peak live bytes above the arguments of a counted run of the step
+    (``lower_cell``'s ``"temp"``), or ``None`` where none was counted."""
 
     argument_size_in_bytes: int
     output_size_in_bytes: int
     temp_size_in_bytes: int | None = None
 
 
-def memory_analysis(cell: Cell) -> MemoryAnalysis:
+def memory_analysis(cell: Cell, temp_bytes: float | None = None) -> MemoryAnalysis:
+    """``cell``'s per-rank argument and output bytes, and ``temp_bytes`` as
+    its temps: a counted run's peak above the arguments (``lower_cell``),
+    extrapolated to the cell's depth by the dry run."""
     return MemoryAnalysis(rank_bytes(cell.abstract_inputs, cell.in_shardings),
-                          rank_bytes(cell.abstract_outputs, cell.out_shardings))
+                          rank_bytes(cell.abstract_outputs, cell.out_shardings),
+                          None if temp_bytes is None else int(temp_bytes))
 
 
 def lower_cell(cell: Cell, mesh) -> dict:
     """Places the cell's abstract inputs on ``mesh`` by its in-shardings and
-    runs its step once under ``CostCounter`` (the dry run's entry).  Returns
-    one rank's ``CostCounter.record()``."""
+    runs its step once under ``CostCounter`` and ``LiveBytes`` (the dry
+    run's entry).  Returns one rank's ``CostCounter.record()`` with
+    ``"temp"``, the peak bytes the step held above its arguments."""
     args = [place_abstract(t, sh, mesh) for t, sh in zip(cell.abstract_inputs, cell.in_shardings)]
-    with CostCounter() as counter:
+    with CostCounter() as counter, LiveBytes() as live:
         cell.step_fn(*args)
-    return counter.record()
+    return {**counter.record(), "temp": live.peak}

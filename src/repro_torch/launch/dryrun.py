@@ -22,9 +22,15 @@ is built but not run: its per-rank argument and output bytes come from its
 placements.  The cost is the 1- and 2-block runs, extrapolated to full
 depth; with ``--skip-cost`` (the reference's multi-pod mode) only the
 1-block run, the counterpart of the reference's raw count, which counts a
-scan body once.  Eager execution has no temp buffers, so ``temps`` are
-``null`` and ``fits_hbm`` compares arguments plus outputs with the H100's
-80 GB.  Times are host seconds of the CPU that runs the count.
+scan body once.  The temps are the peak bytes a rank holds above its
+arguments in the same counted runs (``roofline.memory.LiveBytes``),
+extrapolated as the cost is; as the reference's, ``fits_hbm`` compares
+arguments plus temps with the H100's 80 GB.  On ``meta`` attention and the
+scan run their plain chunked forms, so the temps are those of the plain
+forms, as the reference's default ``attn_impl="chunked"`` compiles them.
+With ``--skip-cost`` one block's peak says little of the full depth's:
+temps and ``fits_hbm`` are ``null`` there.  Times are host seconds of the
+CPU that runs the count.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
@@ -87,6 +93,14 @@ def estimate_cost(arch_id: str, shape_name: str, mesh, cfg,
     return extrapolate(nums[0], nums[1], cfg.n_blocks), nums[0]
 
 
+def fits_hbm(ma, hw) -> bool | None:
+    """Whether a rank's arguments and temps fit ``hw``'s memory, as the
+    reference's ``dryrun.py`` asks; ``None`` where no temps were counted."""
+    if ma.temp_size_in_bytes is None:
+        return None
+    return ma.argument_size_in_bytes + ma.temp_size_in_bytes < hw.hbm_bytes
+
+
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
              results_dir: str = "results/torch", skip_cost: bool = False) -> dict:
     from ..configs import get_config
@@ -101,21 +115,27 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
     with fake_group(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         cell = build_cell(arch_id, shape_name, mesh, cfg=cfg)
-        ma = memory_analysis(cell)
         t_lower = time.perf_counter() - t_start
-        print(f"[{arch_id} x {shape_name} @ {mesh_name}] placements: "
-              f"args={ma.argument_size_in_bytes/1e9:.2f}GB temps=not counted "
-              f"out={ma.output_size_in_bytes/1e9:.2f}GB per device")
         t0 = time.perf_counter()
         numbers, raw = estimate_cost(arch_id, shape_name, mesh, cfg, skip_cost)
         note = ("raw count: one block (the reference's scan body counted once)" if skip_cost
                 else "blockwise extrapolation (1/2-block counted runs)")
         t_count = time.perf_counter() - t0
+        ma = memory_analysis(cell, None if skip_cost else numbers["temp"])
         info = mesh_info(mesh)
+    temps = ("not counted" if ma.temp_size_in_bytes is None
+             else f"{ma.temp_size_in_bytes / 1e9:.2f}GB")
+    print(f"[{arch_id} x {shape_name} @ {mesh_name}] memory: "
+          f"args={ma.argument_size_in_bytes/1e9:.2f}GB temps={temps} "
+          f"out={ma.output_size_in_bytes/1e9:.2f}GB per device")
     print(f"  counted (one block): flops/dev={raw['flops']:.3e} "
-          f"bytes/dev={raw['bytes']:.3e} coll/dev={raw['coll']['total']:.3e}")
+          f"bytes/dev={raw['bytes']:.3e} coll/dev={raw['coll']['total']:.3e} "
+          f"temp/dev={raw['temp']:.3e}")
     note += ("; bytes = input + output bytes of every non-view local aten op, "
-             "unfused: an upper estimate of HBM traffic; temps not counted")
+             "unfused: an upper estimate of HBM traffic; temps = peak live bytes above "
+             "the arguments of the counted runs, with the plain chunked attention and "
+             "scan that run on meta in place of the kernels"
+             + ("; one block's peak is not the cell's: temps not given" if skip_cost else ""))
     roof = roofline_from_numbers(numbers, arch=arch_id, shape_name=shape_name,
                                  mesh_name=mesh_name, n_devices=mesh.size(), cfg=cfg,
                                  shape=SHAPES[shape_name], memory_analysis=ma,
@@ -134,8 +154,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         "raw_cost": {"flops": raw["flops"], "bytes": raw["bytes"],
                      "coll_total": raw["coll"]["total"]},
         "mesh_info": info,
-        "fits_hbm": (ma.argument_size_in_bytes + ma.output_size_in_bytes) < HW_H100.hbm_bytes,
-        "fits_hbm_note": "arguments + outputs per rank against 80 GB; temps not counted",
+        "fits_hbm": fits_hbm(ma, HW_H100),
         "kind": cell.kind,
     })
     os.makedirs(results_dir, exist_ok=True)

@@ -12,13 +12,14 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.flash_attention.ops import flash_attention_auto
 from ..kernels.flash_attention.ref import chunked_attention  # noqa: F401  (the reference's layers.chunked_attention)
-from ..sharding.rules import lift, logical_constraint
+from ..sharding.rules import (layout, lift, local_heads, logical_constraint, mesh_coord,
+                              shard_dims)
 from .common import ArchConfig
 
 
@@ -85,6 +86,63 @@ def reduce_partial(y):
     if not isinstance(y, DTensor):
         return y
     return _ReducePartial.apply(y) if y.requires_grad else _replicate_partial(y)
+
+
+class _GradAsInput(torch.autograd.Function):
+    """The identity on a ``DTensor``, whose gradient is redistributed to the
+    input's placements (partial ones made whole)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = [Replicate() if p.is_partial() else p for p in t.placements]
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def grad_as_input(t):
+    """``t``, its gradient left in t's placements.  A parameter used twice
+    (a tied embedding: the lookup and the LM head) then gets both uses'
+    gradients in one layout, which DTensor adds as they are: torch 2.11
+    plans the sum of a ``Shard`` and a ``Partial`` gradient by turning the
+    ``Shard`` into a ``Partial``, which it cannot do."""
+    if not isinstance(t, DTensor) or not t.requires_grad:
+        return t
+    return _GradAsInput.apply(t)
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]``.  A ``DTensor`` table is looked up on each rank's
+    local tensors through ``local_map``, as a vocab-parallel embedding: a
+    rank takes the rows of its vocab slice (the table's ``Shard(0)``; its
+    width gathered, as ZeRO-3 gathers a weight where it is used) for its
+    batch rows, zeros for the tokens outside the slice, and the pieces sum
+    over the vocab's mesh dims (``reduce_partial``).  DTensor's own rules
+    (torch 2.11) fail there: the backward of ``table[tokens]`` is an
+    ``index_put`` it cannot place, and that of ``index_select`` an
+    ``index_add`` given the global index count on a 3-D mesh."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh, (table, tokens) = lift(table, tokens)
+    vdims, nv = shard_dims(table, 0)
+    bdims = [i for i in shard_dims(tokens, 0)[0] if i not in vdims]
+    wp, tp = layout(mesh.ndim, (vdims, Shard(0))), layout(mesh.ndim, (bdims, Shard(0)))
+    rows = table.shape[0] // nv
+
+    def local(w, t):
+        t = t - mesh_coord(mesh, vdims) * rows
+        held = (t >= 0) & (t < rows)
+        return torch.where(held[..., None], w[t.clamp(0, rows - 1)], 0)
+
+    x = local_map(local, out_placements=list(layout(mesh.ndim, (bdims, Shard(0)),
+                                                    (vdims, Partial()))),
+                  in_placements=(wp, tp),
+                  in_grad_placements=(layout(mesh.ndim, (bdims, Partial()), (vdims, Shard(0))),
+                                      tp),
+                  device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+    return reduce_partial(x)
 
 
 def rmsnorm_init(d, dtype, device):
@@ -167,7 +225,12 @@ def _qkv(p, x, x_kv, cfg):
 def full_attention(q, k, v, *, causal, window=None, q_offset=0,
                    kv_positions=None):
     """Softmax attention over the full score matrix.
-    q: (B,Sq,H,dh) k/v: (B,Skv,KV,dh)."""
+    q: (B,Sq,H,dh) k/v: (B,Skv,KV,dh).  ``DTensor``s run it on each rank's
+    local batch rows and heads (``local_heads``)."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return local_heads(q, k, v, lambda q, k, v: full_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            kv_positions=kv_positions))
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, dh)
@@ -281,28 +344,65 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
         if cfg.swa_window is not None:
             mask_pos &= kv_pos > pos - cfg.swa_window
     qg = split_dim(q, 2, k.shape[2])  # (B, 1, KV, G, dh)
-    if isinstance(k, DTensor) and Shard(1) not in k.placements:
-        # each rank attends with its batch rows and kv heads, k's layout: DTensor's
-        # own dispatch of the einsums plans redistributions for minutes on a 3-D mesh
-        kp = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in k.placements)
-        mesh, (qg, k, v, mask_pos) = lift(qg, k, v, mask_pos)
-        out = local_map(_attend_one, out_placements=list(kp), device_mesh=mesh,
-                        in_placements=(kp, kp, kp, (Replicate(),) * mesh.ndim),
-                        redistribute_inputs=True)(qg, k, v, mask_pos)
-    else:
-        out = _attend_one(qg, k, v, mask_pos)
-    out = out.reshape(B, 1, cfg.n_heads * dh)
+    attend = _attend_sharded if isinstance(k, DTensor) else _attend_one
+    out = attend(qg, k, v, mask_pos).reshape(B, 1, cfg.n_heads * dh)
     return linear(p["wo"], out), cache_k, cache_v
+
+
+def _scores(qg, k, mask_pos):
+    """(B, KV, G, S) fp32 scores of one query position, masked to -1e30."""
+    s = torch.einsum("bqkgd,bskd->bkgs", qg, k).float()
+    s = s * (1.0 / math.sqrt(qg.shape[-1]))
+    return torch.where(mask_pos[None, None, None, :], s, -1e30)
 
 
 def _attend_one(qg, k, v, mask_pos):
     """One query position against a KV cache: qg (B, 1, KV, G, dh), k / v
     (B, S, KV, dh), mask_pos (S,) -> (B, 1, KV, G, dh) in qg's dtype."""
-    s = torch.einsum("bqkgd,bskd->bkgs", qg, k).float()
-    s = s * (1.0 / math.sqrt(qg.shape[-1]))
-    s = torch.where(mask_pos[None, None, None, :], s, -1e30)
-    p_attn = torch.softmax(s, dim=-1).to(qg.dtype)
+    p_attn = torch.softmax(_scores(qg, k, mask_pos), dim=-1).to(qg.dtype)
     return torch.einsum("bkgs,bskd->bkgd", p_attn, v)[:, None]
+
+
+def _attend_sharded(qg, k, v, mask_pos):
+    """``_attend_one`` of ``DTensor``s, on each rank's local tensors through
+    ``local_map`` in k's layout: batch rows (``Shard(0)``), kv heads
+    (``Shard(2)``) and cache positions (``Shard(1)``: a KV cache cut over
+    S_max).  DTensor's own dispatch of the einsums plans redistributions for
+    minutes on a 3-D mesh, and over cut positions torch 2.11 sizes their
+    local views wrongly.  Over cut positions the softmax takes two passes,
+    as flash decoding splits a cache: each rank's row maxima reduce to the
+    global ones (``Partial("max")``), then each rank's exp-weighted sum of v
+    and its normaliser reduce as partial sums and divide."""
+    kp = tuple(p if p in (Shard(0), Shard(1), Shard(2)) else Replicate() for p in k.placements)
+    mesh, (qg, k, v, mask_pos) = lift(qg, k, v, mask_pos)
+    seq = [i for i, p in enumerate(kp) if p == Shard(1)]
+    qp = tuple(Replicate() if i in seq else p for i, p in enumerate(kp))
+    if not seq:
+        return local_map(_attend_one, out_placements=list(qp), device_mesh=mesh,
+                         in_placements=(qp, kp, kp, (Replicate(),) * mesh.ndim),
+                         redistribute_inputs=True)(qg, k, v, mask_pos)
+    mp = layout(mesh.ndim, (seq, Shard(0)))
+
+    def stat(over_seq):  # placements of (B, KV, G) statistics
+        return tuple(over_seq if i in seq else Shard(1) if p == Shard(2) else p
+                     for i, p in enumerate(kp))
+
+    m = local_map(lambda q, k, msk: _scores(q, k, msk).amax(-1),
+                  out_placements=list(stat(Partial("max"))), in_placements=(qp, kp, mp),
+                  device_mesh=mesh, redistribute_inputs=True)(qg, k, mask_pos)
+    m = m.redistribute(mesh, stat(Replicate()))
+
+    def sums(q, k, v, msk, m):
+        p_attn = torch.exp(_scores(q, k, msk) - m[..., None])
+        return (torch.einsum("bkgs,bskd->bkgd", p_attn.to(q.dtype), v)[:, None],
+                p_attn.sum(-1))
+
+    out_p = tuple(Partial() if i in seq else p for i, p in enumerate(qp))
+    acc, l = local_map(sums, out_placements=(list(out_p), list(stat(Partial()))),
+                       in_placements=(qp, kp, kp, mp, stat(Replicate())), device_mesh=mesh,
+                       redistribute_inputs=True)(qg, k, v, mask_pos, m)
+    acc, l = _replicate_partial(acc), _replicate_partial(l)
+    return (acc.float() / l[:, None, :, :, None]).to(qg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +445,7 @@ def chunked_xent(embed_table, x, labels, *, chunk: int):
     V = embed_table.shape[0]
     if S % chunk:
         raise ValueError(f"chunked_xent: S={S} is not a multiple of chunk={chunk}")
-    table = embed_table.to(x.dtype)
+    table = grad_as_input(embed_table).to(x.dtype)
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = 0
     for start in range(0, S, chunk):

@@ -24,7 +24,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -33,7 +32,7 @@ from ..sharding.rules import logical_constraint
 from .common import ArchConfig
 from .convert import tree_map
 from .layers import (_normal, attention_apply, attention_decode,
-                     attention_init, chunked_xent, linear, linear_init,
+                     attention_init, chunked_xent, embed_lookup, linear, linear_init,
                      mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
 from .moe import moe_apply, moe_init
 from .ssm import ssm_decode_step
@@ -79,6 +78,25 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype):
     }
 
 
+def _zeros_along(x, dim: int, n: int):
+    """Zeros shaped as ``x`` but with ``n`` entries along ``dim``, in x's
+    placements when ``x`` is a ``DTensor`` (``zeros_like`` of slices of
+    it): concatenated to ``x``, they pad it as ``F.pad`` does, which torch
+    2.11's DTensor cannot redistribute for (its planner's ``IndexError``)."""
+    size = x.shape[dim]
+    parts = [torch.zeros_like(x.narrow(dim, 0, min(size, n - i))) for i in range(0, n, size)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def _shift(x, i: int):
+    """x delayed by ``i`` steps along axis 1, zeros first:
+    ``F.pad(x, (0, 0, i, 0))[:, :S]``."""
+    S = x.shape[1]
+    if i >= S:
+        return torch.zeros_like(x)
+    return torch.cat([_zeros_along(x, 1, i), x[:, :S - i]], dim=1)
+
+
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv via shifts.  x: (B, S, D); w: (k, D); state:
     (B, k - 1, D) trailing inputs from the previous segment, or None."""
@@ -87,7 +105,7 @@ def _causal_conv(x, w, state=None):
     ext = None if state is None else torch.cat([state, x], dim=1)
     for i in range(1, kk):
         if ext is None:
-            shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+            shifted = _shift(x, i)
         else:
             start = state.shape[1] - i
             shifted = ext[:, start:start + S]
@@ -187,7 +205,7 @@ def rwkv_init(gen: torch.Generator, cfg: ArchConfig, dtype):
 def _token_shift(x, prev=None):
     """x_{t-1} stream; prev: (B, 1, d) carried across segments."""
     if prev is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
+        return _shift(x, 1)
     return torch.cat([prev, x], dim=1)[:, :x.shape[1]]
 
 
@@ -199,7 +217,8 @@ def _log_decay(p, x, xs):
     """The data-dependent decay (the Finch contribution): the LoRA in x's
     dtype, then fp32 for ``-exp(decay_bias + lora)`` (< 0)."""
     xw = _mix(x, xs, p["mu_w"])
-    lora = torch.tanh(xw @ p["decay_w1"].to(x.dtype)) @ p["decay_w2"].to(x.dtype)
+    # through ``linear``: sharded, each product's partial sums reduce at once
+    lora = linear({"w": p["decay_w2"]}, torch.tanh(linear({"w": p["decay_w1"]}, xw)))
     return -torch.exp(p["decay_bias"] + lora.float())
 
 
@@ -438,11 +457,7 @@ def _embed(params, tokens, cfg: ArchConfig, batch=None):
     """Token embeddings in ``cfg.compute_dtype``; for a VLM with
     ``batch["image_embeds"]`` (B, n_image, patch_dim), the first n_image
     positions are the projected image embeddings instead."""
-    table = params["embed"]["table"]
-    # a sharded table looks up through ``index_select``: DTensor (torch 2.11)
-    # fails to shard the ``index_put`` that the backward of ``table[tokens]`` is
-    x = (table.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, -1)
-         if isinstance(table, DTensor) else table[tokens]).to(_dtype(cfg.compute_dtype))
+    x = embed_lookup(params["embed"]["table"], tokens).to(_dtype(cfg.compute_dtype))
     if cfg.vlm is not None and batch is not None and "image_embeds" in batch:
         img = linear(params["vision_proj"], batch["image_embeds"].to(x.dtype))
         n_img, S = img.shape[1], x.shape[1]
@@ -528,7 +543,8 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     if pad_to is not None and pad_to > S and "attn_k" in caches:
         for key in ("attn_k", "attn_v"):
             # (nb, n_attn, B, S, KV, dh): zero-pad the sequence axis
-            caches[key] = F.pad(caches[key], (0, 0, 0, 0, 0, pad_to - S))
+            caches[key] = torch.cat([caches[key], _zeros_along(caches[key], -3, pad_to - S)],
+                                    dim=-3)
     return logits_last(params, x[:, -1:, :], cfg), caches, S
 
 

@@ -73,13 +73,26 @@ class CostCounter(CollectiveCounter):
 
 def cost_numbers(counted: dict) -> dict:
     """{'flops', 'bytes', 'coll': {...}} per device, from the record of one
-    counted run (``CostCounter.record()``)."""
-    return {"flops": float(counted["flops"]), "bytes": float(counted["bytes"]),
-            "coll": counted["coll"]}
+    counted run (``CostCounter.record()``), and 'temp', the run's peak live
+    bytes above its arguments, where the record has it
+    (``launch.cells.lower_cell`` adds ``roofline.memory.LiveBytes``' peak)."""
+    out = {"flops": float(counted["flops"]), "bytes": float(counted["bytes"]),
+           "coll": counted["coll"]}
+    if "temp" in counted:
+        out["temp"] = float(counted["temp"])
+    return out
 
 
 def extrapolate(c1: dict, c2: dict, n_blocks: int) -> dict:
-    """total = c1 + (n_blocks - 1) * max(c2 - c1, 0) elementwise."""
+    """total = c1 + (n_blocks - 1) * max(c2 - c1, 0) elementwise.
+
+    The peak live bytes ('temp') extrapolate the same way, though a peak
+    is not a sum: in a train step it comes at the start of the backward,
+    where every block's saved input (the block remat keeps one a block),
+    its parameters' gradients so far and one block's recompute are alive,
+    so each block adds its saved bytes once; in a prefill each block adds
+    its KV cache.  tests/test_torch_memory.py holds the extrapolated peak
+    to a full-depth count."""
     def lin(a, b):
         return a + (n_blocks - 1) * max(b - a, 0.0)
 
@@ -94,12 +107,15 @@ def extrapolate(c1: dict, c2: dict, n_blocks: int) -> dict:
         a = c1["coll"]["count"].get(op, 0)
         b = c2["coll"]["count"].get(op, 0)
         counts[op] = int(lin(a, b))
-    return {
+    out = {
         "flops": lin(c1["flops"], c2["flops"]),
         "bytes": lin(c1["bytes"], c2["bytes"]),
         "coll": {"total": int(sum(by_op.values())), "by_op": by_op,
                  "count": counts},
     }
+    if "temp" in c1 and "temp" in c2:
+        out["temp"] = lin(c1["temp"], c2["temp"])
+    return out
 
 
 @dataclass
@@ -163,8 +179,8 @@ def roofline_from_numbers(numbers: dict, *, arch: str, shape_name: str,
                           note: str = "") -> Roofline:
     """As the reference's; ``memory_analysis`` is any object with
     ``argument_size_in_bytes`` and ``temp_size_in_bytes``
-    (``launch.cells.memory_analysis`` gives them, with temps ``None``:
-    eager execution has none to read)."""
+    (``launch.cells.memory_analysis`` gives them, temps from the counted
+    run's peak live bytes, or ``None`` where none was counted)."""
     flops = numbers["flops"]
     bytes_accessed = numbers["bytes"]
     coll = numbers["coll"]

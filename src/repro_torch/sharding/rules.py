@@ -26,7 +26,8 @@ import math
 import threading
 from contextlib import contextmanager
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 
 def _norm(axes):
@@ -191,6 +192,54 @@ def layout(ndim: int, *pieces) -> tuple:
         for i in dims:
             out[i] = placement
     return tuple(out)
+
+
+def mesh_coord(mesh, dims) -> int:
+    """This rank's linear index over the mesh dims ``dims``, major first
+    (the order in which DTensor cuts a dim sharded over several)."""
+    coord, r = mesh.get_coordinate(), 0
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+    return r
+
+
+def local_heads(q, k, v, attend):
+    """``attend(q, k, v)`` on each rank's local tensors through ``local_map``:
+    attention is local to a (batch row, query head), so the flash kernel,
+    the plain chunked form and the full-matrix form all run on local
+    tensors, and no attention op reaches DTensor's sharding rules.
+    q: (B, Sq, H, dh), k / v: (B, Skv, KV, dh).
+
+    Batch rows keep q's ``Shard(0)`` and query heads its ``Shard(2)``; every
+    other mesh dim is replicated (the kernel needs whole sequences).  Key /
+    value heads follow the query heads' sharding when the mesh dims divide
+    them.  When they do not (``kv_heads`` under a model axis it does not
+    divide, so ``physical_for_dim`` dropped it), k and v stay replicated and
+    each rank passes ``attend`` the one kv head its query heads read (local
+    head ``h`` reads kv head ``h // G`` only within that slice); their
+    gradient is then a partial sum over those mesh dims.  If the local query
+    heads straddle two kv heads, the query heads are replicated instead."""
+    mesh, (q, k, v) = lift(q, k, v)
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    bdims, _ = shard_dims(q, 0)
+    hdims, nh = shard_dims(q, 2)
+    sliced = bool(hdims) and KV % nh != 0
+    if sliced and G % (H // nh):
+        hdims, sliced = [], False
+    qp = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Shard(2)))
+    kp = layout(mesh.ndim, (bdims, Shard(0)), ([] if sliced else hdims, Shard(2)))
+    kgrad = layout(mesh.ndim, (bdims, Shard(0)), (hdims, Partial() if sliced else Shard(2)))
+
+    def local(ql, kl, vl):
+        if sliced:
+            j = mesh_coord(mesh, hdims) * (H // nh) // G
+            kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
+        return attend(ql, kl, vl)
+
+    return local_map(local, out_placements=list(qp), in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kgrad, kgrad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 # ---------------------------------------------------------------------------

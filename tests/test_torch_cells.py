@@ -21,14 +21,24 @@ and against the unsharded port.
 * The decode cell with ``pos`` a replicated 0-d tensor, as the dry run
   places it, on KV caches cut over S_max (2x2 and 1x4), against the int
   ``pos`` run.
+* granite-moe train steps under each pin, against the unsharded step.
+* Each family's sharded prefill on a 2x2 mesh under ``RefusedOps``, a
+  dispatch mode that records the ``DTensor`` ops torch 2.11's sharding
+  rules refuse (ROADMAP C15): none may reach them.  Newer torch versions
+  accept those ops, so under them only the recording shows the fault.
+
+Each case records its own result, or the error it raised, so one case's
+error fails its own tests and leaves the family's other cases running.
 """
 
+import datetime
 import json
 import os
 import socket
 import subprocess
 import sys
 import textwrap
+import traceback
 import weakref
 
 import pytest
@@ -41,7 +51,9 @@ import torch.multiprocessing as mp  # noqa: E402
 from torch.distributed.tensor import (DTensor, Replicate, Shard,  # noqa: E402
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication  # noqa: E402
+from torch.distributed.tensor._ops._view_ops import Flatten, InputDim, view_groups  # noqa: E402
 from torch.multiprocessing.reductions import StorageWeakRef  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.ckpt import checkpoint as ckpt_module  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint  # noqa: E402
@@ -170,6 +182,31 @@ def _rel(got, want) -> float:
             / want.float().abs().max().clamp(min=1e-30)).item()
 
 
+def _each(cases: dict) -> dict:
+    """{name: the thunk's result, or ``{"error", "traceback"}`` of what it
+    raised}: one case's error leaves the others running."""
+    out = {}
+    for name, run in cases.items():
+        try:
+            out[name] = run()
+        except Exception as exc:  # recorded: the case's own tests fail on it
+            out[name] = {"error": f"{type(exc).__name__}: {exc}",
+                         "traceback": traceback.format_exc()[-4000:]}
+    return out
+
+
+def _case(result, *path):
+    """The case at ``path`` of a family's result; fails with the error the
+    family or the case recorded."""
+    for depth in range(len(path) + 1):
+        if isinstance(result, dict) and "error" in result and "traceback" in result:
+            pytest.fail(f"{'/'.join(map(str, path[:depth])) or 'family'}: {result['error']}\n"
+                        f"{result['traceback']}")
+        if depth < len(path):
+            result = result[path[depth]]
+    return result
+
+
 def _cfg(arch, **kw):
     return get_config(arch).scaled_down(**{"compute_dtype": "float32",
                                            "param_dtype": "float32", **kw})
@@ -223,13 +260,13 @@ def _serve_case(mesh, arch, cfg, B=4, S=32, n_dec=4, seed=1, tensor_pos=False):
     return out
 
 
-def _train_case(mesh, tmp, **cfg_kw):
-    """h2o-danube-3-4b scaled down (1 kv head under a 2-way model axis: the
-    kernel boundary's sliced GQA path; ``cfg_kw`` overrides the config)
-    through the train cell: loss, every gradient leaf and the grad norm
-    against the unsharded step, and the AdamW update against the unsharded
-    AdamW applied to the gathered sharded gradients."""
-    arch, B, S = "h2o-danube-3-4b", 4, 32
+def _train_case(mesh, tmp, arch="h2o-danube-3-4b", **cfg_kw):
+    """``arch`` scaled down (h2o-danube-3-4b: 1 kv head under a 2-way model
+    axis, the kernel boundary's sliced GQA path; ``cfg_kw`` overrides the
+    config) through the train cell: loss, every gradient leaf and the grad
+    norm against the unsharded step, and the AdamW update against the
+    unsharded AdamW applied to the gathered sharded gradients."""
+    B, S = 4, 32
     cfg = _cfg(arch, **cfg_kw)
     api = build(cfg, CPU)
     opt = OptimizerConfig(state_dtype="float32", warmup_steps=0, peak_lr=1e-3)
@@ -267,24 +304,27 @@ def _gqa_cases(mesh):
     replicated, forward and gradients, against the unsharded call: one kv
     head per rank's heads (sliced), query heads straddling two kv heads
     (q replicated) and kv heads the axis divides (sharded)."""
-    out = {}
-    for name, H, KV in (("sliced", 4, 1), ("replicated_q", 6, 3), ("sharded", 4, 2)):
-        gen = torch.Generator().manual_seed(H * 10 + KV)
-        q = torch.randn((4, 24, H, 16), generator=gen)
-        k, v = (torch.randn((4, 24, KV, 16), generator=gen) for _ in range(2))
-        w = torch.randn((4, 24, H, 16), generator=gen)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        want = flash_attention(*leaves, causal=True, window=None)
-        want_grads = torch.autograd.grad((want * w).sum(), leaves)
-        dq = distribute_tensor(q, mesh, [Shard(0), Shard(2)]).requires_grad_()
-        dk, dv = (distribute_tensor(t, mesh, [Shard(0), Replicate()]).requires_grad_()
-                  for t in (k, v))
-        got = flash_attention(dq, dk, dv, causal=True, window=None)
-        dw = distribute_tensor(w, mesh, [Shard(0), Replicate()])
-        got_grads = torch.autograd.grad((got * dw).sum(), [dq, dk, dv])
-        out[name] = {"out": _rel(got, want), "out_placements": [str(p) for p in got.placements],
-                     "grads": max(_rel(g, wg) for g, wg in zip(got_grads, want_grads))}
-    return out
+    return _each({name: (lambda H=H, KV=KV: _gqa_case(mesh, H, KV))
+                  for name, H, KV in (("sliced", 4, 1), ("replicated_q", 6, 3),
+                                      ("sharded", 4, 2))})
+
+
+def _gqa_case(mesh, H, KV):
+    gen = torch.Generator().manual_seed(H * 10 + KV)
+    q = torch.randn((4, 24, H, 16), generator=gen)
+    k, v = (torch.randn((4, 24, KV, 16), generator=gen) for _ in range(2))
+    w = torch.randn((4, 24, H, 16), generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = flash_attention(*leaves, causal=True, window=None)
+    want_grads = torch.autograd.grad((want * w).sum(), leaves)
+    dq = distribute_tensor(q, mesh, [Shard(0), Shard(2)]).requires_grad_()
+    dk, dv = (distribute_tensor(t, mesh, [Shard(0), Replicate()]).requires_grad_()
+              for t in (k, v))
+    got = flash_attention(dq, dk, dv, causal=True, window=None)
+    dw = distribute_tensor(w, mesh, [Shard(0), Replicate()])
+    got_grads = torch.autograd.grad((got * dw).sum(), [dq, dk, dv])
+    return {"out": _rel(got, want), "out_placements": [str(p) for p in got.placements],
+            "grads": max(_rel(g, wg) for g, wg in zip(got_grads, want_grads))}
 
 
 def _constraint_cases(mesh):
@@ -400,25 +440,37 @@ def _ckpt_cases(mesh, tmp):
 
 def _dense_cases(mesh, tmp):
     arch = "h2o-danube-3-4b"
-    return {"serve": _serve_case(mesh, arch, _cfg(arch), n_dec=2, tensor_pos=True),
-            "train": _train_case(mesh, tmp), "gqa": _gqa_cases(mesh),
-            "constraint": _constraint_cases(mesh), "ckpt": _ckpt_cases(mesh, tmp)}
+    return _each({"serve": lambda: _serve_case(mesh, arch, _cfg(arch), n_dec=2, tensor_pos=True),
+                  "train": lambda: _train_case(mesh, tmp), "gqa": lambda: _gqa_cases(mesh),
+                  "constraint": lambda: _constraint_cases(mesh),
+                  "ckpt": lambda: _ckpt_cases(mesh, tmp)})
+
+
+#: granite-moe's ``moe_shard_constraints`` values: none, and the two pins
+MOE_PINS = ["", "expert", "capacity"]
 
 
 def _moe_cases(mesh, tmp):
+    """Prefill and decode under each pin, and a train step under each pin
+    and none (the dry run's cells set no pin)."""
     arch = "granite-moe-1b-a400m"
-    return {pin: _serve_case(mesh, arch, _cfg(arch, moe_shard_constraints=pin))
-            for pin in ("expert", "capacity")}
+    serve = {pin: (lambda pin=pin: _serve_case(mesh, arch, _cfg(arch, moe_shard_constraints=pin)))
+             for pin in MOE_PINS[1:]}
+    train = {f"train_{pin}": (lambda pin=pin: _train_case(mesh, tmp, arch,
+                                                          moe_shard_constraints=pin))
+             for pin in MOE_PINS}
+    return _each({**serve, **train})
 
 
 def _ssm_cases(mesh, tmp):
-    return {arch: _serve_case(mesh, arch, _cfg(arch, ssm_shard_constraints=True), n_dec=2)
-            for arch in ("rwkv6-7b", "jamba-1.5-large-398b")}
+    return _each({arch: (lambda arch=arch: _serve_case(mesh, arch, _cfg(arch, ssm_shard_constraints=True),
+                                                       n_dec=2))
+                  for arch in ("rwkv6-7b", "jamba-1.5-large-398b")})
 
 
 def _whisper_cases(mesh, tmp):
     arch = "whisper-medium"
-    return {arch: _serve_case(mesh, arch, _cfg(arch), S=16, n_dec=2)}
+    return _each({arch: lambda: _serve_case(mesh, arch, _cfg(arch), S=16, n_dec=2)})
 
 
 def _heads_cases(mesh, tmp):
@@ -427,34 +479,142 @@ def _heads_cases(mesh, tmp):
     split into heads (``layers.split_dim``); the KV caches (S_max 36) are
     cut over S_max."""
     arch = "h2o-danube-3-4b"
-    return {"serve": _serve_case(mesh, arch, _cfg(arch, n_kv_heads=2), tensor_pos=True),
-            "train": _train_case(mesh, tmp, n_kv_heads=2)}
+    return _each({"serve": lambda: _serve_case(mesh, arch, _cfg(arch, n_kv_heads=2),
+                                               tensor_pos=True),
+                  "train": lambda: _train_case(mesh, tmp, n_kv_heads=2)})
 
 
 def _vocab_cases(mesh, tmp):
     """One request of rwkv6 decoding greedily with its vocab cut over a
     2-wide model axis."""
     arch = "rwkv6-7b"
-    return {arch: _serve_case(mesh, arch, _cfg(arch), B=1, n_dec=2)}
+    return _each({arch: lambda: _serve_case(mesh, arch, _cfg(arch), B=1, n_dec=2)})
+
+
+aten = torch.ops.aten
+
+
+def _sharded_dims(t) -> set:
+    return {p.dim for p in t.placements if isinstance(p, Shard)} if isinstance(t, DTensor) else set()
+
+
+def _refused(func, args) -> str | None:
+    """Why torch 2.11's sharding rules refuse ``func`` on these ``DTensor``
+    arguments (ROADMAP C15), or None: a view (no copy allowed) that
+    flattens a sharded dim into the dim before it ("Attempted to flatten
+    multiple dimensions, with dimension 1 being sharded"), a constant pad
+    of a sharded tensor (its redistribute planner's ``IndexError``), and
+    ``index`` / ``index_put`` on a sharded indexed dim (results sized or
+    broadcast wrongly)."""
+    x = args[0]
+    cut = _sharded_dims(x)
+    if not cut:
+        return None
+    if func in (aten.view.default, aten._unsafe_view.default) and x.dim() >= 4:
+        size = torch._prims_common.infer_size(args[1], x.numel())
+        for cmd in view_groups(list(x.shape), list(size)):
+            inner = {d.input_dim for d in getattr(cmd, "input_dims", ())[1:]
+                     if isinstance(d, InputDim)} if isinstance(cmd, Flatten) else set()
+            if inner & cut:
+                return f"{func} flattens sharded dims {sorted(inner & cut)} of {tuple(x.shape)}"
+    if func is aten.constant_pad_nd.default:
+        return f"{func} of a tensor sharded on dims {sorted(cut)}"
+    if func in (aten.index.Tensor, aten.index_put.default, aten.index_put_.default,
+                aten._index_put_impl_.default):
+        indexed = {i for i, ix in enumerate(args[1]) if ix is not None}
+        if indexed & cut:
+            return f"{func} indexes sharded dims {sorted(indexed & cut)} of {tuple(x.shape)}"
+    return None
+
+
+class RefusedOps(TorchDispatchMode):
+    """Records each op on ``DTensor``s that torch 2.11's sharding rules
+    refuse (``_refused``), then hands it to DTensor, which runs it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen: list[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            why = _refused(func, args)
+            if why:
+                self.seen.append(why)
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+#: the prefills ``_refused_cases`` records: (name, arch, config overrides)
+REFUSED_PREFILLS = [
+    ("dense_full_attention", "h2o-danube-3-4b", {"attn_impl": "full"}),
+    ("rwkv6", "rwkv6-7b", {"ssm_shard_constraints": True}),
+    ("jamba", "jamba-1.5-large-398b", {"ssm_shard_constraints": True}),
+    *[(f"moe_{pin or 'unpinned'}", "granite-moe-1b-a400m", {"moe_shard_constraints": pin})
+      for pin in MOE_PINS],
+    ("whisper", "whisper-medium", {}),
+]
+
+
+def _refused_prefill(mesh, arch, cfg_kw, B=4, S=16):
+    cfg = _cfg(arch, **cfg_kw)
+    params = build(cfg, CPU).init(torch.Generator().manual_seed(0))
+    batch = {"tokens": _tokens(cfg, B, S, 1)}
+    if cfg.is_encdec:
+        batch["audio_embeds"] = torch.randn((B, cfg.encdec.n_audio_ctx, cfg.d_model),
+                                            generator=torch.Generator().manual_seed(2))
+    cell = build_cell(arch, ShapeConfig("p", S, B, "prefill"), mesh, cfg=cfg, pad_to=S + 2)
+    args = (distribute_like(params, cell.in_shardings[0], mesh),
+            distribute_like(batch, cell.in_shardings[1], mesh))
+    with RefusedOps() as rec:
+        cell.step_fn(*args)
+    return rec.seen
+
+
+def _refused_chunked(mesh):
+    """The plain chunked attention on DTensors with ``shard_constrain``
+    (k and v pinned to (batch, kv_heads), q cut by heads)."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((4, 20, 4, 8), generator=gen) for _ in range(3))
+    dq = distribute_tensor(q, mesh, [Shard(0), Shard(2)])
+    dk, dv = (distribute_tensor(t, mesh, [Replicate()] * 2) for t in (k, v))
+    with axis_rules(production_rules(False, mesh=mesh)), implicit_replication(), \
+            RefusedOps() as rec:
+        chunked_attention(dq, dk, dv, causal=True, chunk=8, shard_constrain=True)
+    return rec.seen
+
+
+def _refused_cases(mesh, tmp):
+    """Each family's sharded prefill, and the chunked attention, under
+    ``RefusedOps``: the refused ops each reached."""
+    cases = {name: (lambda arch=arch, kw=kw: _refused_prefill(mesh, arch, kw))
+             for name, arch, kw in REFUSED_PREFILLS}
+    return _each({**cases, "chunked_attention": lambda: _refused_chunked(mesh)})
 
 
 #: family -> (cases, the mesh's (n_data, n_model))
 FAMILIES = {"dense": (_dense_cases, (2, 2)), "moe": (_moe_cases, (2, 2)),
             "ssm": (_ssm_cases, (2, 2)), "whisper": (_whisper_cases, (2, 2)),
-            "heads": (_heads_cases, (1, 4)), "vocab": (_vocab_cases, (1, 2))}
+            "heads": (_heads_cases, (1, 4)), "vocab": (_vocab_cases, (1, 2)),
+            "refused": (_refused_cases, (2, 2))}
 
 
 def _rank_main(rank, world, port, family, tmp):
     """One rank of a gloo group: the family's mesh and cases; rank 0
-    writes what it measured to ``tmp``/result.json."""
+    writes what it measured to ``tmp``/result.json, each case's result or
+    error (``_each``), or the family's error if its mesh failed."""
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
+    # a case that fails on some ranks only leaves the others in a collective:
+    # the timeout ends the spawn rather than the test run's time limit
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
     try:
         cases, shape = FAMILIES[family]
-        mesh = make_test_mesh(*shape, device_type="cpu")
-        res = cases(mesh, tmp)
+        try:
+            res = cases(make_test_mesh(*shape, device_type="cpu"), tmp)
+        except Exception as exc:  # recorded: every test of the family fails on it
+            res = {"error": f"{type(exc).__name__}: {exc}",
+                   "traceback": traceback.format_exc()[-4000:]}
         if rank == 0:
             with open(os.path.join(tmp, "result.json"), "w") as f:
                 json.dump(res, f)
@@ -506,13 +666,19 @@ def vocab(tmp_path_factory):
     return _spawn("vocab", tmp_path_factory)
 
 
+@pytest.fixture(scope="module")
+def refused(tmp_path_factory):
+    return _spawn("refused", tmp_path_factory)
+
+
 def test_train_step_loss_and_grad_norm(dense):
-    assert dense["train"]["loss"] <= SHARD_RTOL
-    assert dense["train"]["grad_norm"] <= SHARD_RTOL
+    train = _case(dense, "train")
+    assert train["loss"] <= SHARD_RTOL
+    assert train["grad_norm"] <= SHARD_RTOL
 
 
 def test_train_step_every_grad_leaf(dense):
-    grads = dense["train"]["grads"]
+    grads = _case(dense, "train", "grads")
     assert len(grads) > 10
     bad = {k: v for k, v in grads.items() if v > SHARD_RTOL}
     assert not bad
@@ -524,14 +690,15 @@ def test_train_step_adamw_update(dense):
     of gradient noise on near-zero entries would move it by a visible share
     of the learning rate, and it is held on the gradients the sharded step
     took.  Moments are placed as their parameters."""
-    assert dense["train"]["adamw_same_grads"] <= 1e-6
-    assert dense["train"]["moments_placed_as_params"]
+    train = _case(dense, "train")
+    assert train["adamw_same_grads"] <= 1e-6
+    assert train["moments_placed_as_params"]
 
 
 def test_train_cell_shards_params_2d(dense):
     """ZeRO-3 + TP on the 2x2 mesh: wq over (fsdp, model), the vocab of the
     embedding over model and its width over data, norms replicated."""
-    placed = dense["train"]["param_placements"]
+    placed = _case(dense, "train", "param_placements")
     assert placed["embed/table"] == ["S(1)", "S(0)"]
     assert placed["blocks/layers/0/attn/wq/w"] == ["S(1)", "S(2)"]
     assert placed["blocks/layers/0/norm1/scale"] == ["R", "R"]
@@ -544,14 +711,14 @@ def test_flash_boundary_gqa_kv_heads(dense, case):
     rank's heads straddle two kv heads and q is replicated; with 2 kv heads
     k / v are cut too.  Output and the gradients through ``local_map`` (the
     plain backward per shard) equal the unsharded call's."""
-    got = dense["gqa"][case]
+    got = _case(dense, "gqa", case)
     assert got["out"] <= SHARD_RTOL and got["grads"] <= SHARD_RTOL
     heads = {"sliced": "S(2)", "replicated_q": "R", "sharded": "S(2)"}[case]
     assert got["out_placements"] == ["S(0)", heads]
 
 
 def test_logical_constraint_redistributes(dense):
-    c = dense["constraint"]
+    c = _case(dense, "constraint")
     assert c["pinned"] == ["S(0)", "S(2)"] and c["pinned_equal"]
     assert c["non_dividing"] == ["R", "R"]
     assert c["plain_is_input"]
@@ -559,7 +726,7 @@ def test_logical_constraint_redistributes(dense):
 
 
 def test_elastic_restore_onto_2x2_placements(dense):
-    c = dense["ckpt"]
+    c = _case(dense, "ckpt")
     assert c["step"] == 7 and c["restored_shards_match"]
     assert 0 < c["sharded_leaves"] < c["leaves"]
 
@@ -569,13 +736,13 @@ def test_elastic_restore_keeps_only_shards(dense):
     bytes: one full leaf alive at once, and no restored shard's storage
     larger than the shard (a view into the full leaf would keep it alive).
     Either fault would have each rank hold the unsharded state."""
-    c = dense["ckpt"]
+    c = _case(dense, "ckpt")
     assert c["full_leaves_held_at_once"] == 1
     assert c["shard_storage_own"]
 
 
 def test_sharded_save_byte_identical(dense):
-    c = dense["ckpt"]
+    c = _case(dense, "ckpt")
     assert c["files"] > 3 and c["manifest_equal"] and c["bytes_equal"]
 
 
@@ -584,14 +751,14 @@ def test_sharded_save_gathers_one_leaf_at_a_time(dense):
     reference saves: no rank holds more than one full leaf at once, and
     only rank 0, which writes, keeps host bytes (the state's, once).  Before,
     every rank gathered every leaf, then copied all of them to its host."""
-    c = dense["ckpt"]
+    c = _case(dense, "ckpt")
     assert c["save_full_leaves_held_at_once"] == [1, 1, 1, 1]
     assert c["save_host_bytes"] == [c["state_bytes"], 0, 0, 0]
 
 
 @pytest.mark.parametrize("pin", ["expert", "capacity"])
 def test_moe_prefill_decode_pinned(moe, pin):
-    got = moe[pin]
+    got = _case(moe, pin)
     assert got["prefill_logits"] <= SHARD_RTOL and got["decode_caches"] <= SHARD_RTOL
     assert got["decode_tokens_equal"]
     assert got["cache_placements"]["attn_k"] == ["S(2)", "S(4)"]  # batch, kv heads
@@ -599,7 +766,7 @@ def test_moe_prefill_decode_pinned(moe, pin):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
 def test_ssm_prefill_decode_constrained(ssm, arch):
-    got = ssm[arch]
+    got = _case(ssm, arch)
     assert got["prefill_logits"] <= SHARD_RTOL and got["decode_caches"] <= SHARD_RTOL
     assert got["decode_tokens_equal"]
     assert got["cache_placements"]["ssm"] == ["S(2)", "S(3)"]  # batch, heads
@@ -609,12 +776,13 @@ def test_ssm_prefill_decode_constrained(ssm, arch):
 def test_kv_heads_not_dividing_model_axis(heads, step):
     """2 kv heads on a 1x4 mesh (model = 4): prefill, a decode step and a
     train step equal the unsharded port."""
-    serve, train = heads["serve"], heads["train"]
     if step == "prefill":
-        assert serve["prefill_logits"] <= SHARD_RTOL
+        assert _case(heads, "serve")["prefill_logits"] <= SHARD_RTOL
     elif step == "decode":
+        serve = _case(heads, "serve")
         assert serve["decode_tokens_equal"] and serve["decode_caches"] <= SHARD_RTOL
     else:
+        train = _case(heads, "train")
         assert train["loss"] <= SHARD_RTOL and train["grad_norm"] <= SHARD_RTOL
         assert max(train["grads"].values()) <= SHARD_RTOL
 
@@ -625,7 +793,7 @@ def test_decode_tensor_pos_on_sequence_sharded_cache(family, request):
     places it, on KV caches cut over S_max (1 kv head under a 2-wide model
     axis, 2 under a 4-wide one): every rank writes only the row it holds,
     so tokens and caches equal the int ``pos`` run."""
-    got = request.getfixturevalue(family)["serve"]
+    got = _case(request.getfixturevalue(family), "serve")
     assert "S(3)" in got["cache_placements"]["attn_k"]  # S_max cut over "model"
     assert got["tensor_pos_tokens_equal"] and got["tensor_pos_caches"] <= SHARD_RTOL
 
@@ -633,12 +801,36 @@ def test_decode_tensor_pos_on_sequence_sharded_cache(family, request):
 def test_greedy_decode_over_sharded_vocab(vocab):
     """rwkv6, one request, its vocab cut over a 2-wide model axis: the
     greedy tokens are the unsharded ones."""
-    got = vocab["rwkv6-7b"]
+    got = _case(vocab, "rwkv6-7b")
     assert got["prefill_logits"] <= SHARD_RTOL and got["decode_tokens_equal"]
 
 
 def test_whisper_decode_over_cross_caches(whisper):
-    got = whisper["whisper-medium"]
+    got = _case(whisper, "whisper-medium")
     assert got["prefill_logits"] <= SHARD_RTOL and got["decode_caches"] <= SHARD_RTOL
     assert got["decode_tokens_equal"]
     assert got["cache_placements"]["cross_k"] == ["S(2)", "S(4)"]
+
+
+@pytest.mark.parametrize("pin", MOE_PINS)
+def test_moe_train_step_pinned(moe, pin):
+    """granite-moe's train step under each pin and none: the dispatch and
+    the combine run through ``local_map`` on each rank's experts and token
+    rows, and their gradients sum over the other ranks; loss, grad norm and
+    every gradient leaf equal the unsharded step's."""
+    train = _case(moe, f"train_{pin}")
+    assert train["loss"] <= SHARD_RTOL and train["grad_norm"] <= SHARD_RTOL
+    assert max(train["grads"].values()) <= SHARD_RTOL
+    assert train["param_placements"]["blocks/layers/0/moe/wi"][1] == "S(1)"  # experts on model
+
+
+@pytest.mark.parametrize("case", [name for name, _, _ in REFUSED_PREFILLS]
+                         + ["chunked_attention"])
+def test_no_op_torch_2_11_refuses(refused, case):
+    """No ``DTensor`` op that torch 2.11's sharding rules refuse (ROADMAP
+    C15) runs in the family's sharded prefill on a 2x2 mesh: attention's
+    einsums (a view flattening the kv-head dim into the batch dim) run on
+    local tensors, rwkv6's token shift, mamba's conv and the prefill's cache
+    padding concatenate zeros rather than pad, and MoE's scatter and gather
+    index local buffers."""
+    assert _case(refused, case) == []

@@ -43,7 +43,7 @@ CELL = textwrap.dedent("""
         mesh = make_test_mesh(2, 2, pods=2, device_type="cpu")
         cell = build_cell(arch, shape, mesh, cfg=get_config(arch).scaled_down(n_layers=2))
         cost = lower_cell(cell, mesh)
-    ma = memory_analysis(cell)
+    ma = memory_analysis(cell, cost["temp"])
     print(json.dumps({"ok": True, "args": ma.argument_size_in_bytes,
                       "out": ma.output_size_in_bytes, "flops": cost["flops"],
                       "bytes": cost["bytes"], "coll": cost["coll"]["total"],
@@ -129,7 +129,7 @@ def test_cell_lowers_on_multipod_test_mesh(arch, shape):
     rec = _run(CELL, ARCH=arch, SHAPE=shape)
     assert rec["ok"] and rec["kind"] == shape.split("_")[0]
     assert rec["flops"] > 0 and rec["bytes"] > 0
-    assert rec["args"] > 0 and rec["out"] > 0 and rec["temps"] is None
+    assert rec["args"] > 0 and rec["out"] > 0 and rec["temps"] > 0
     # distributed program must actually communicate
     assert rec["coll"] > 0
 

@@ -35,6 +35,7 @@ from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
 from repro_torch.models.registry import build
+from repro_torch.roofline import LiveBytes
 
 #: B, T, H, K, V, use_u, chunk, sub: tests/test_kernels.py's SSM_CASES, then
 #: ragged K, V and T
@@ -551,3 +552,34 @@ def test_ssm_scan_through_local_map_matches_direct_call(cuda, mesh1, layout, pla
     assert ssm_kernel.launches == before + 1
     assert isinstance(y, DTensor) and isinstance(s, DTensor)
     assert torch.equal(y.to_local(), want_y) and torch.equal(s.to_local(), want_s)
+
+
+#: the tracker's peak against the allocator's on a chain of products, bytes:
+#: the caching allocator rounds each block up to 512 bytes, and the chain's
+#: 2 MiB blocks are whole multiples of it, so the two should agree exactly;
+#: one block of slack
+LIVE_BYTES_SLACK = 2 << 20
+
+
+def test_live_bytes_peak_matches_cuda_allocator(cuda):
+    """``roofline.LiveBytes`` (the dry run's temp bytes) on the card: the
+    peak of a chain of products and activations above the bytes allocated
+    before it equals ``torch.cuda.max_memory_allocated`` minus that
+    baseline.  The product runs once before, so cuBLAS's workspace is in
+    the baseline."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((1024, 512), generator=gen, device=cuda)
+    ws = [torch.randn((512, 512), generator=gen, device=cuda) for _ in range(4)]
+    x @ ws[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with LiveBytes() as live:
+        h = x
+        for w in ws:
+            h = torch.tanh(h @ w) + h
+        out = h.sum()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    assert torch.isfinite(out)
+    assert live.peak > 0 and abs(live.peak - measured) <= LIVE_BYTES_SLACK

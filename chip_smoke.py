@@ -118,7 +118,21 @@
    fp32 logits (within SHARDED_FP32_LIMIT) against the unsharded run, both
    prefills' walls and idle shares; then jamba scaled down in fp32 the same
    way (the scan and flash's fp32 path through ``local_map``);
-16. runs the sharding layer's CPU cases under this machine's torch
+16. replicates that checkpoint through the port's federation plane
+   (``federate``): a FederatedCoordinator over three TransferManager sites
+   sharing one ReplicaCatalog, s0 owning the cluster's POSIX store behind
+   a FaultProxyConnector (transient errors on its sends, mid-stream too),
+   s1 an emulated s3 store and s2 a gcs store (streams into both cut
+   short once or twice a file); two copies submitted as TransferSpec JSON
+   (integrity on, lanesum32), s0 failed with both mid-flight and each
+   handed to a peer with its restart markers, then a third copy to a second
+   path of the s3 store that the catalog must serve from the s3 replica
+   without reading the source; every copy SUCCEEDED, faults injected and
+   retried, tenant and origin kept across the handoff, the coordinator
+   charged no model time, and each of the three replicas restored byte
+   for byte, every leaf's lanesum32 taken by the kernel on the card from
+   the replica's bytes equal to the save-time digest;
+17. runs the sharding layer's CPU cases under this machine's torch
    (``sharded_gloo``: pytest over GLOO_TESTS in its own process, started
    beside the build): 4-rank gloo groups on the CPU, a 2x2 mesh for each
    family (dense, rwkv6, jamba, granite-moe unpinned and under both pins,
@@ -127,7 +141,7 @@
    that torch 2.11's DTensor refuses, the dry run's 2x2x2 cells and the
    peak live-bytes tracker; every case must pass.  CPU ranks, not the
    card: NCCL puts no two ranks on one card;
-17. runs the port's pod-scale dry run of all 34 single-pod cells on the
+18. runs the port's pod-scale dry run of all 34 single-pod cells on the
    16x16 mesh (``dryrun``: ``python -m repro_torch.launch.dryrun --all
    --single-pod-only`` in its own process, started beside the build, its
    fake process group of 256 ranks kept away from serve_sharded's real
@@ -136,14 +150,14 @@
    ``fits_hbm``, seconds, and its counts over the same cell's CPU reading
    under torch 2.13 (DRYRUN_CPU_READING: DTensor's rules, and so the
    counts, differ between torch versions);
-18. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
+19. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
    port's ``cost_numbers`` and peak live bytes for the same config and 2 x
    2048 tokens) and sets its FLOPs and bytes against
    ``roofline.hw.HW_H100`` beside the step seconds and busy ms
    ``train_moe`` measured, and its peak beside the step's measured
    ``torch.cuda.max_memory_allocated``; checks that ``HW_H100``'s 80 GB is
    within HBM_MATCH of the card's memory;
-19. prints one JSON line of per-kernel launches (by path), times and
+20. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero.  Without CUDA, or without the repository
@@ -332,6 +346,15 @@ MOE_TRAIN_FP32_LIMIT = 1e-3
 #: rank: every placement is trivial, so the runs should be bit-equal)
 SHARDED_WORKLOAD = (4, 512, 8)
 SHARDED_FP32_LIMIT = 1e-6
+#: the federated replication of train_moe's checkpoint: the site that owns
+#: each emulated store (s0 owns the cluster's POSIX store), the tenant the
+#: copies run for, the bytes the source streams before it holds for the site
+#: failure, the fault schedules' seed, and the wall limit of each wait, seconds
+FED_STORES = {"s1": "s3", "s2": "gcs"}
+FED_TENANT = "trainer"
+FED_HOLD_BYTES = 256 << 20
+FED_SEED = 23
+FED_TIMEOUT = 300.0
 #: the dry run's cell whose counts are printed (single pod, 16x16), and the
 #: time limit of the dry run of all 34 single-pod cells, seconds
 DRYRUN_CELL, DRYRUN_TIMEOUT = (MOE_ARCH, "train_4k"), 900
@@ -2746,6 +2769,279 @@ def serve_sharded(torch, kernels, ckpt_dir, trained, device):
         dist.destroy_process_group()
 
 
+def fed_schedules(seed):
+    """The federated copies' fault schedules: (the cluster store's, {store:
+    its own}).  On the cluster store, the source: the first per-file send of
+    every file fails with a transient error, and so does about one 4 MiB
+    block in 500 mid-stream, after real progress.  On each destination store: the
+    first two streams of every file into the first two replicas' paths are
+    cut after 1 MiB each (two, so that a stream the site failure paused
+    before its first MiB does not use up the file's cut).  A truncated stream is a fault of the bytes a store
+    receives (the fault proxy applies data faults there, so that a source
+    checksum still sees the bytes the source sent), so it sits on the
+    stores that receive; every other fault is the source's."""
+    from repro_torch.core.faults import FaultSchedule
+    src = (FaultSchedule(seed=seed)
+           .transient(op="send", at=1, times=1)
+           .transient(op="write", prob=0.002, times=None))
+    dst = {store: FaultSchedule(seed=seed + 1 + i).truncate(
+        after_bytes=1 << 20, op="recv*", path="replica/*", at=1, times=2)
+        for i, store in enumerate(FED_STORES.values())}
+    return src, dst
+
+
+def federate(torch, kernels, ckpt_dir, trained, device, smi, hold_bytes=FED_HOLD_BYTES):
+    """The paper's third-party replication, federated over sites: the
+    checkpoint train_moe saved in ``ckpt_dir`` (its lanesum32 digests taken
+    on the card) copied to two emulated object stores through a
+    FederatedCoordinator over three TransferManager sites on one
+    Clock(scale=0.0) sharing one ReplicaCatalog: s0 owns the cluster's
+    POSIX store (behind a FaultProxyConnector and the source-side fault
+    schedule), s1 an s3 store, s2 a gcs store (each behind a proxy that
+    cuts streams into it).  Both copies are submitted through
+    TransferSpec's JSON wire form (integrity on, lanesum32, as
+    ckpt/replicate.py sets them) and placed at s0, the source's owner; the
+    source holds after ``hold_bytes`` have streamed, and s0 is failed with
+    both copies mid-flight: each is paused, drained and handed to a peer
+    with its traveled markers.  Then a third copy of the same checkpoint to
+    a second path of the s3 store, which the catalog must serve from the
+    s3 replica, reading no byte of the source.  Every replica's manifest
+    must be the card's, and each replica must restore through
+    restore_checkpoint (each leaf's lanesum32 computed by the checksum
+    kernel on the card from the replica's bytes, against the manifest's)
+    byte for byte equal to ``trained``.  Returns the row."""
+    import threading
+    from repro_torch.catalog import ReplicaCatalog
+    from repro_torch.ckpt import get_bytes, restore_checkpoint
+    from repro_torch.connectors import (FaultProxyConnector, ObjectStoreConnector,
+                                        PosixConnector, make_cloud)
+    from repro_torch.core import Clock, Credential
+    from repro_torch.core.manager import TransferManager
+    from repro_torch.core.transfer import CredentialStore, TransferOptions
+    from repro_torch.fed import FederatedCoordinator, TransferSpec
+    from repro_torch.models.convert import flatten
+    # the scenario harness's hold on the source and its byte meters
+    from repro_torch.sim.scenarios import _HoldSrc, _InstrumentedDst, _MeteredSrc
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    with open(os.path.join(ckpt_dir, "ckpt", "LATEST")) as f:
+        step = int(f.read())
+    src_path = f"ckpt/step_{step}"
+    names = sorted(os.listdir(os.path.join(ckpt_dir, src_path)))
+    nbytes = sum(os.path.getsize(os.path.join(ckpt_dir, src_path, n)) for n in names)
+    with open(os.path.join(ckpt_dir, src_path, "manifest.json"), "rb") as f:
+        manifest_raw = f.read()
+    manifest = json.loads(manifest_raw)
+    n_leaves = len(manifest["objects"]) + len(manifest["bundles"])
+    check(n_leaves == len(flatten(trained)), f"{n_leaves} leaves in the checkpoint")
+
+    clock = Clock(scale=0.0)
+    src_sched, dst_scheds = fed_schedules(FED_SEED)
+    hold = _HoldSrc(PosixConnector(ckpt_dir))
+    metered = _MeteredSrc(hold)
+    endpoints = {"cluster": FaultProxyConnector(metered, src_sched, clock=clock)}
+    stores, landed = {}, {}
+    for store in FED_STORES.values():
+        stores[store] = ObjectStoreConnector(make_cloud(store, clock=clock), placement="cloud",
+                                             clock=clock)
+        landed[store] = _InstrumentedDst(stores[store])
+        endpoints[store] = FaultProxyConnector(landed[store], dst_scheds[store], clock=clock)
+    creds = {"cluster": Credential("local-user", {}),
+             **{store: Credential(conn.credential_scheme, {}) for store, conn in stores.items()}}
+    catalog = ReplicaCatalog()
+    coord = FederatedCoordinator(placement="owner", catalog=catalog)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fed_")
+    reset_flash_counts(fa_kernel)
+    cs_kernel.launches = ssm_kernel.launches = 0
+    try:
+        for site, owns in {"s0": {"cluster"}, **{s: {st} for s, st in FED_STORES.items()}}.items():
+            store = CredentialStore()
+            for ep, cred in creds.items():
+                store.register(ep, cred)
+            manager = TransferManager(max_workers=2, per_endpoint_cap=None, credential_store=store,
+                                      catalog=catalog, marker_root=os.path.join(tmp, site),
+                                      clock=clock, site_id=site)
+            coord.register_site(site, manager, endpoints, owns=owns)
+        opts = TransferOptions(integrity=True, checksum_algorithm="lanesum32")
+
+        def spec(task_id, store, path):
+            return TransferSpec.new(task_id, "cluster", src_path, store, f"{path}/step_{step}",
+                                    tenant=FED_TENANT, options=opts, n_files=len(names),
+                                    nbytes=nbytes)
+
+        copies = {store: spec(f"fed-{store}", store, "replica/ckpt") for store in stores}
+        hold.arm_hold([src_path + "/"], hold_bytes)
+        t0 = time.perf_counter()
+        for s in copies.values():
+            coord.submit(s.to_json())
+        placed = {tid: site for tid, site, why in coord.metrics.placement_log if why == "submit"}
+        check(set(placed.values()) == {"s0"}, f"copies placed at {placed}, not at the source's owner")
+
+        # the site failure, with both copies mid-flight (run_federated's sequence)
+        check(hold.engaged.wait(FED_TIMEOUT), "the source never held: no copy was mid-flight")
+        victims = [coord.task(s.task_id) for s in copies.values()]
+        t_end = time.perf_counter() + FED_TIMEOUT
+        while not any(t.stats.bytes_done > 0 for t in victims) and time.perf_counter() < t_end:
+            time.sleep(0.002)
+        check(any(t.stats.bytes_done > 0 for t in victims), "no copy landed a byte before the hold")
+        landed_before = {s.task_id: coord.task(s.task_id).stats.bytes_done for s in copies.values()}
+        moved, errors = [], []
+
+        def fail():
+            try:
+                moved.extend(coord.fail_site("s0", timeout=FED_TIMEOUT))
+            except Exception as exc:  # surfaced by the check below
+                errors.append(exc)
+
+        t_fail = time.perf_counter()
+        failer = threading.Thread(target=fail, daemon=True)
+        failer.start()
+        while time.perf_counter() < t_end and not all(
+                t._done.is_set() or t._pause_req.is_set() or t.status == t.PAUSED for t in victims):
+            time.sleep(0.005)
+        hold.release()
+        failer.join(FED_TIMEOUT)
+        fail_s = time.perf_counter() - t_fail
+        check(not failer.is_alive() and not errors, f"fail_site: {errors or 'wedged'}")
+        check(len(moved) >= 1 and all(site != "s0" for _, site in moved),
+              f"the site failure moved {moved}")
+        traveled = {tid: coord.last_spec(tid).done_bytes() for tid, _ in moved}
+        check(any(v > 0 for v in traveled.values()),
+              f"no handed-off copy carried partial progress: {traveled}")
+
+        done_at = {}
+
+        def waiter(store, task_id):
+            if coord.task(task_id).wait(FED_TIMEOUT):
+                done_at[store] = time.perf_counter()
+
+        waiters = [threading.Thread(target=waiter, args=(store, s.task_id), daemon=True)
+                   for store, s in copies.items()]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join(FED_TIMEOUT)
+        rows = {}
+        for store, s in copies.items():
+            task = coord.task(s.task_id)
+            st = task.stats
+            check(task.status == task.SUCCEEDED and store in done_at,
+                  f"copy to {store}: {task.status}: {task.events[-5:]}")
+            check(st.files_done == st.files_total == len(names) and st.bytes_total == nbytes
+                  and all(f.ok and f.checksum for f in task.files if f.size),
+                  f"copy to {store}: {st}")
+            # beyond the checkpoint's size: the heads of truncated streams
+            # written again, and any block the site failure's pause cut
+            written = landed[store].written(f"replica/ckpt/step_{step}/")
+            check(written >= nbytes, f"{written} bytes landed in {store} for {nbytes}")
+            wall = done_at[store] - t0
+            rows[store] = {"task": s.task_id, "site": st.site, "origin_site": st.origin_site,
+                           "tenant": st.tenant, "wall_s": wall, "mb_per_s": nbytes / wall / 1e6,
+                           "model_s": st.actual_model_seconds, "resumes": st.resumes,
+                           "faults_retried": st.faults_retried,
+                           "retries_by_kind": dict(st.retries_by_kind),
+                           "integrity_failures": st.integrity_failures,
+                           "batch_fallbacks": st.batch_fallbacks,
+                           "bytes_landed_before_failure": landed_before[s.task_id],
+                           "bytes_written": written, "bytes_resent": written - nbytes}
+        for tid, site in moved:
+            st = coord.task(tid).stats
+            check(st.site == site and st.origin_site == "s0" and st.tenant == FED_TENANT
+                  and st.resumes >= 1,
+                  f"{tid} after its handoff to {site}: site {st.site}, origin {st.origin_site}, "
+                  f"tenant {st.tenant}, resumes {st.resumes}")
+        injected = {"source": src_sched.sorted_events(),
+                    **{store: sched.sorted_events() for store, sched in dst_scheds.items()}}
+        kinds = {}
+        for events in injected.values():
+            for kind, *_ in events:
+                kinds[kind] = kinds.get(kind, 0) + 1
+        retried = sum(r["faults_retried"] for r in rows.values())
+        check(kinds.get("transient", 0) > 0 and kinds.get("truncate", 0) > 0 and retried > 0,
+              f"faults injected {kinds}, retried {retried}")
+
+        # the third copy: served by the catalog from the s3 replica
+        sent_before = metered.sent(src_path)
+        third = spec("fed-s3-catalog", "s3", "replica2/ckpt")
+        t3 = time.perf_counter()
+        task = coord.submit(third.to_json())
+        check(task.wait(FED_TIMEOUT), "the third copy did not finish")
+        third_s = time.perf_counter() - t3
+        st = task.stats
+        check(task.status == task.SUCCEEDED, f"third copy {task.status}: {task.events[-5:]}")
+        check(st.replica_hits == len(names) and st.replica_bytes == st.bytes_total == nbytes
+              and st.replica_fallbacks == 0 and metered.sent(src_path) == sent_before,
+              f"third copy: {st.replica_hits} catalog hits of {len(names)} files, "
+              f"{st.replica_bytes} of {nbytes} bytes from replicas, {st.replica_fallbacks} "
+              f"fallbacks, {metered.sent(src_path) - sent_before} bytes read from the source")
+        rows["s3_catalog"] = {"task": third.task_id, "site": st.site, "wall_s": third_s,
+                              "mb_per_s": nbytes / third_s / 1e6,
+                              "model_s": st.actual_model_seconds,
+                              "replica_hits": st.replica_hits, "replica_bytes": st.replica_bytes,
+                              "replica_fallbacks": st.replica_fallbacks,
+                              "source_bytes_read": metered.sent(src_path) - sent_before}
+        coordinator_s = coord.model_seconds()
+        check(coordinator_s == 0.0,
+              f"third-party violation: the coordinator accrued {coordinator_s} model seconds")
+        coord.shutdown(wait=False)
+
+        # each replica: the card's manifest, restored byte for byte, every
+        # leaf's lanesum32 taken by the kernel from the replica's bytes
+        leaves = flatten(trained)
+        want = {p: t.reshape(-1).view(torch.uint8) for p, t in leaves.items()}
+        restores = {}
+        for name, (store, base) in {"s3": ("s3", "replica/ckpt"),
+                                    "gcs": ("gcs", "replica/ckpt"),
+                                    "s3_catalog": ("s3", "replica2/ckpt")}.items():
+            conn, cred = stores[store], creds[store]
+            session = conn.start(cred)
+            try:
+                check(get_bytes(conn, session, f"{base}/step_{step}/manifest.json") == manifest_raw,
+                      f"the {name} replica's manifest is not the one the card wrote")
+            finally:
+                conn.destroy(session)
+            before = cs_kernel.launches
+            t_r = time.perf_counter()
+            restored, got_step = restore_checkpoint(trained, conn, base, step, credential=cred)
+            if cuda:
+                torch.cuda.synchronize(device)
+            launches = cs_kernel.launches - before
+            check(got_step == step and launches == (n_leaves if cuda else 0),
+                  f"{name}: restored step {got_step} with {launches} checksum launches for "
+                  f"{n_leaves} leaves")
+            for path, got in flatten(restored).items():
+                check(got.device == leaves[path].device
+                      and torch.equal(got.reshape(-1).view(torch.uint8), want[path]),
+                      f"{path} restored from the {name} replica differs from the trained leaf")
+            del restored
+            restores[name] = {"seconds": time.perf_counter() - t_r, "checksum_launches": launches,
+                              "leaf_digests_checked": n_leaves}
+        fa_run = flash_counts(fa_kernel)
+        check(fa_run[0] == 0 and ssm_kernel.launches == 0,
+              f"federate launched flash {fa_run} / scan {ssm_kernel.launches} times")
+        row = {"phase": "federate", "arch": MOE_ARCH, "step": step, "files": len(names),
+               "bytes": nbytes, "leaves": n_leaves, "nvidia_smi": smi,
+               "placed": placed, "handoffs": [
+                   {"task": tid, "from": "s0", "to": site, "bytes_traveled": traveled[tid],
+                    "bytes_resent": rows[tid.removeprefix("fed-")]["bytes_resent"]}
+                   for tid, site in moved],
+               "fail_site_s": fail_s, "copies": rows,
+               "faults_injected": kinds, "faults_retried": retried,
+               "catalog": {"hits": rows["s3_catalog"]["replica_hits"], **catalog.stats()},
+               "coordinator_model_s": coordinator_s, "restores": restores,
+               "checksum_launches": cs_kernel.launches, "seconds": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+    finally:
+        coord.shutdown(wait=False)
+        hold.release()
+        for conn in stores.values():  # the replicas held in host memory
+            for key in list(conn.storage.blobs.keys()):
+                conn.storage.blobs.delete(key)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def background(argv, log_path):
     """``argv`` in a process group of its own at the lowest CPU priority,
     output to ``log_path``: the phases' host work goes first."""
@@ -3015,6 +3311,7 @@ def main() -> int:
             torch, launch_train, kernels, ckpt_dir, device)
         torch.cuda.empty_cache()
         _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
+        fed = federate(torch, kernels, ckpt_dir, trained, device, smi[:1])
         del trained
         sharded_gloo_phase(gloo, gloo_dir, t_dryrun, torch.__version__)
         dryrun_phase(dryrun, dryrun_dir, t_dryrun, torch.__version__)
@@ -3037,15 +3334,15 @@ def main() -> int:
     fa_by_path = {"serve": serve_fa, "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
                   "serve_hybrid": hybrid["flash"], "serve_whisper": whisper_fa,
                   "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0,
-                  "train_moe": moe_train_fa, "serve_sharded": sharded["flash"]}
+                  "train_moe": moe_train_fa, "serve_sharded": sharded["flash"], "federate": 0}
     cs_by_path = {"serve": 0, "serve_rwkv": 0, "serve_moe": 0, "mamba_layer": 0,
                   "serve_hybrid": 0, "serve_whisper": 0, "serve_vlm": 0, "train": train_cs,
                   "train_mirror_restore": mirror_cs, "train_rwkv": 0, "train_moe": moe_train_cs,
-                  "serve_sharded": sharded["checksum"]}
+                  "serve_sharded": sharded["checksum"], "federate": fed["checksum_launches"]}
     ssm_by_path = {"serve": 0, "serve_rwkv": rwkv_ssm, "serve_moe": 0, "mamba_layer": mamba_ssm,
                    "serve_hybrid": hybrid["scan"], "serve_whisper": 0, "serve_vlm": 0,
                    "train": 0, "train_rwkv": rwkv_train_ssm, "train_moe": 0,
-                   "serve_sharded": sharded["scan"]}
+                   "serve_sharded": sharded["scan"], "federate": 0}
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -41,7 +41,7 @@ def _env_scale() -> float:
 # cv-slicing loops that bound REAL threads (scenario kill windows, the
 # coordinator's caller-facing wait_all timeout) genuinely need the wall
 # clock.  They get it from these two helpers and nowhere else: the
-# contract linter (rule R001, ``python -m repro.lint``) bans direct
+# contract linter (rule R001, ``python -m repro_torch.lint``) bans direct
 # ``time.time/monotonic/sleep`` outside this module, so every wall
 # read in the stack is greppable as wall_now/wall_sleep and auditable
 # here.  Neither helper charges model time; code that does model-visible

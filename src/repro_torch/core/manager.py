@@ -376,7 +376,7 @@ class TransferManager:
 
     @property
     def catalog(self):
-        """The shared :class:`~repro.catalog.ReplicaCatalog` (``None``
+        """The shared :class:`~repro_torch.catalog.ReplicaCatalog` (``None``
         when the replica plane is off)."""
         return self.service.catalog
 

@@ -1041,7 +1041,7 @@ class TransferService:
         #: registry; when set, every attempt is gated by the endpoint
         #: circuit breakers + retry budgets and reports its outcome back
         self.health = health
-        #: optional shared :class:`~repro.catalog.ReplicaCatalog`; when
+        #: optional shared :class:`~repro_torch.catalog.ReplicaCatalog`; when
         #: set (and integrity is on — the fold is the content address),
         #: finished files are published at durable-commit time and new
         #: files are satisfied by verified near-destination replica

@@ -111,16 +111,16 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
 
     mesh_name = "2x16x16" if multi_pod else "16x16"
     cfg = get_config(arch_id)
-    t_start = time.perf_counter()
+    t_start = time.perf_counter()  # lint: disable=R001(measures the real wall time of building and counting a cell — outside the transfer model entirely)
     with fake_group(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         cell = build_cell(arch_id, shape_name, mesh, cfg=cfg)
-        t_lower = time.perf_counter() - t_start
-        t0 = time.perf_counter()
+        t_lower = time.perf_counter() - t_start  # lint: disable=R001(measures the real wall time of building the cell)
+        t0 = time.perf_counter()  # lint: disable=R001(measures the real wall time of counting the cell)
         numbers, raw = estimate_cost(arch_id, shape_name, mesh, cfg, skip_cost)
         note = ("raw count: one block (the reference's scan body counted once)" if skip_cost
                 else "blockwise extrapolation (1/2-block counted runs)")
-        t_count = time.perf_counter() - t0
+        t_count = time.perf_counter() - t0  # lint: disable=R001(measures the real wall time of counting the cell)
         ma = memory_analysis(cell, None if skip_cost else numbers["temp"])
         info = mesh_info(mesh)
     temps = ("not counted" if ma.temp_size_in_bytes is None
@@ -149,7 +149,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         "lower_seconds": t_lower,
         "compile_seconds": None,   # eager: nothing is compiled
         "count_seconds": t_count,
-        "seconds": time.perf_counter() - t_start,
+        "seconds": time.perf_counter() - t_start,  # lint: disable=R001(measures the real wall time of building and counting a cell)
         "bytes_per_dev_output": float(ma.output_size_in_bytes),
         "raw_cost": {"flops": raw["flops"], "bytes": raw["bytes"],
                      "coll_total": raw["coll"]["total"]},
@@ -205,7 +205,7 @@ def main() -> int:
                     if json.load(f).get("ok"):
                         print(f"[skip cached] {arch} x {shape} @ {mesh_name}")
                         continue
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # lint: disable=R001(measures the real wall time of a failed cell)
             try:
                 run_cell(arch, shape, mp, args.results_dir, skip_cost=args.skip_cost or mp)
             except Exception as e:  # every cell is tried; each failure is recorded
@@ -214,7 +214,7 @@ def main() -> int:
                 os.makedirs(args.results_dir, exist_ok=True)
                 with open(path, "w") as f:
                     json.dump({"ok": False, "arch": arch, "shape": shape, "mesh": mesh_name,
-                               "error": repr(e), "seconds": time.perf_counter() - t0}, f)
+                               "error": repr(e), "seconds": time.perf_counter() - t0}, f)  # lint: disable=R001(measures the real wall time of a failed cell)
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f4 in failures:

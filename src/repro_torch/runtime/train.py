@@ -92,12 +92,12 @@ def run_training(api: ModelApi, opt_cfg: OptimizerConfig,
     batches = (data_iter.prefetching_batches()
                if hasattr(data_iter, "prefetching_batches") else data_iter)
     losses, grad_norms, step_seconds = [], [], []
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # lint: disable=R001(tokens/s is a real training-throughput stat — outside the transfer model entirely)
     tokens = 0
     step = start_step
 
     def result(steps_run):
-        dt = max(time.perf_counter() - t0, 1e-9)
+        dt = max(time.perf_counter() - t0, 1e-9)  # lint: disable=R001(tokens/s is a real training-throughput stat)
         return TrainResult(steps_run=steps_run,
                            final_loss=losses[-1][1] if losses else float("nan"),
                            losses=losses, restored_from=restored_from,
@@ -110,10 +110,10 @@ def run_training(api: ModelApi, opt_cfg: OptimizerConfig,
         batch = {k: torch.tensor(v, device=api.device) for k, v in batch.items()}
         if loop_cfg.fail_at_step == step:
             raise InjectedFailure(step, result(step - 1 - start_step))
-        ts = time.perf_counter()
+        ts = time.perf_counter()  # lint: disable=R001(step_seconds is a real training step's wall time)
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # waits for the step's device work
-        step_seconds.append(time.perf_counter() - ts)
+        step_seconds.append(time.perf_counter() - ts)  # lint: disable=R001(step_seconds is a real training step's wall time)
         tokens += batch["tokens"].numel()
         if step % loop_cfg.log_every == 0 or step == loop_cfg.total_steps:
             gnorm = float(metrics["grad_norm"])

@@ -37,7 +37,7 @@ def test_import_leaves_out_jax_and_reference():
     out = _run(["-c", IMPORT_ALL])
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 66  # the model stack and the transfer plane it carries
+    assert int(count) >= 90  # the model stack, the transfer planes and the linter
     assert bad == "[]"
 
 
@@ -111,7 +111,9 @@ PLANE_MODULES = [
     "repro_torch.core.perfmodel", "repro_torch.core.health", "repro_torch.core.transfer",
     "repro_torch.core.manager", "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.svc.bus", "repro_torch.connectors.memory", "repro_torch.connectors.cloud",
-    "repro_torch.ckpt.replicate",
+    "repro_torch.ckpt.replicate", "repro_torch.catalog.replica",
+    "repro_torch.connectors.faultproxy", "repro_torch.fed.coordinator",
+    "repro_torch.sim.scenarios", "repro_torch.lint.engine",
 ]
 
 

@@ -9,7 +9,11 @@
 3. holds each kernel against its plain PyTorch version on the card:
    flash attention (``kernel_check``: the TMA / wgmma path on every bf16
    case it can describe, the mma.sync path on a head dim of 20 and on views
-   one element off 16-byte alignment, the fp32 path), the lanesum32 checksum
+   one element off 16-byte alignment, the fp32 path; then the
+   ``attn_accum_bf16`` mode of the mma.sync and fp32 kernels on the
+   kernel module's ACC_CASES, the served prefill's shape among them,
+   against the plain chunked form with ``accum_bf16`` and fp32 truth), the
+   lanesum32 checksum
    (``checksum_check``, bit-exact, a buffer above 2 GiB included) and the
    ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
    strong and scalar decay, the chunked kernel's edges (T 1 and 17, a
@@ -21,7 +25,8 @@
    ``torch.profiler``, for flash of the kernel and SDPA alike, and their
    ratio (where the window cuts, SDPA with the band as a mask computes the
    kernel's function, and SDPA with ``is_causal`` over every causal pair
-   is timed beside it);
+   is timed beside it); flash's ``attn_accum_bf16`` mode and its plain form
+   at the same shapes;
 5. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
    a seed) through ``repro_torch.launch.serve`` (``serve``): 4 requests x
    512-token prompts to 32 tokens, then 1 request x a 5120-token prompt to
@@ -29,7 +34,11 @@
    on the TMA path, the same greedy first token through the plain
    attention, and logits about as close to an fp32 prefill as the plain
    bf16 prefill's; one profiled prefill gives the device busy time, idle
-   share and the flash kernel's share of the busy time;
+   share and the flash kernel's share of the busy time; the 4 x 512
+   prefill again with ``attn_accum_bf16`` (``serve_accum_bf16``): 24
+   launches of the mma.sync kernel's bf16-accumulating instance, logits
+   near the plain accum_bf16 prefill's and about as close to the fp32
+   prefill as those;
 6. serves full-width rwkv6-7b (32 layers, bf16) the same two ways
    (``serve_rwkv``): 32 scan launches per prefill and none per decode step,
    no flash or checksum launch, finite logits; in fp32 compute the kernel
@@ -107,8 +116,14 @@
    bf16-rounded q, k, v must land beyond it; routing decisions that differ
    printed), 2 TMA flash launches per layer and step, the warm rate and a
    profiled step split into the flash forward, the plain attention
-   backward, MoE dispatch and combine, AdamW and the rest; then it saves the
-   trained parameters with save_checkpoint (lanesum32 on the card);
+   backward, MoE dispatch and combine, AdamW and the rest; then
+   ``remat="dots"`` on the same state and batch (``train_moe_dots``): an
+   fp32 loss and gradient against the block remat's within DOTS_FP32_LIMIT,
+   the matrix products each backward dispatches, timed steps with 2 TMA
+   flash launches per layer, a step's peak above the state beside the
+   block steps', and the bytes held from the forward to the backward
+   (dots' above block's: the saved products); then it saves the trained parameters with save_checkpoint
+   (lanesum32 on the card);
 15. serves through the sharding layer (``serve_sharded``): a one-rank NCCL
    group and a (1, 1) ("data", "model") CUDA mesh; granite-moe's trained
    parameters restored from that checkpoint onto the prefill cell's
@@ -133,7 +148,7 @@
    for byte, every leaf's lanesum32 taken by the kernel on the card from
    the replica's bytes equal to the save-time digest;
 17. runs the sharding layer's CPU cases under this machine's torch
-   (``sharded_gloo``: pytest over GLOO_TESTS in its own process, started
+   (``sharded_gloo``: pytest over GLOO_TESTS in two processes, started
    beside the build): 4-rank gloo groups on the CPU, a 2x2 mesh for each
    family (dense, rwkv6, jamba, granite-moe unpinned and under both pins,
    whisper) and the 1x4 and 1x2 meshes, each family's sharded prefill,
@@ -149,13 +164,19 @@
    roofline terms against the H100's datasheet figures, temps,
    ``fits_hbm``, seconds, and its counts over the same cell's CPU reading
    under torch 2.13 (DRYRUN_CPU_READING: DTensor's rules, and so the
-   counts, differ between torch versions);
+   counts, differ between torch versions); then ``perf_iter``:
+   ``scripts/perf_iter_torch.py`` on PERF_ITER_CELL under ``remat=dots``
+   and ``remat=block`` (started beside the build too), the three terms,
+   the full-depth temps and their dots-over-block ratios;
 19. counts ``train_moe``'s step on ``meta`` tensors (``roofline``: the
    port's ``cost_numbers`` and peak live bytes for the same config and 2 x
    2048 tokens) and sets its FLOPs and bytes against
    ``roofline.hw.HW_H100`` beside the step seconds and busy ms
    ``train_moe`` measured, and its peak beside the step's measured
-   ``torch.cuda.max_memory_allocated``; checks that ``HW_H100``'s 80 GB is
+   ``torch.cuda.max_memory_allocated``, then the dots step's peak and the
+   bytes its forward holds for the backward above block's, each beside the
+   card's reading within PEAK_MATCH, and each remat's loss and gradient
+   peak the same way; checks that ``HW_H100``'s 80 GB is
    within HBM_MATCH of the card's memory;
 20. prints one JSON line of per-kernel launches (by path), times and
    bounds, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -297,6 +318,10 @@ MOE_WORKLOADS = [(4, 512, 32), (1, 5120, 8)]
 MOE_FP32_LOGIT_LIMIT = 1e-3
 #: moe_apply's record_function ranges: profiles keep them out of the kernels
 MOE_RANGES = ("moe/dispatch", "moe/combine")
+#: the ranges a granite-moe training step's profile reads (and keeps out of
+#: the kernels)
+MOE_STEP_RANGES = ("train_step/loss_and_grad", "train_step/adamw",
+                   "flash_attention/plain_backward", *MOE_RANGES)
 
 #: jamba: one mamba mixer at full width, (batch, tokens) of its prefills,
 #: then this many one-token decode steps
@@ -358,9 +383,11 @@ FED_TIMEOUT = 300.0
 #: the dry run's cell whose counts are printed (single pod, 16x16), and the
 #: time limit of the dry run of all 34 single-pod cells, seconds
 DRYRUN_CELL, DRYRUN_TIMEOUT = (MOE_ARCH, "train_4k"), 900
-#: the sharding layer's CPU cases (no JAX) and their time limit, seconds
-GLOO_TESTS, GLOO_TIMEOUT = ("tests/test_torch_cells.py", "tests/test_torch_dryrun.py",
-                            "tests/test_torch_memory.py"), 900
+#: the sharding layer's CPU cases (no JAX), in groups that run as pytest
+#: processes side by side, and their time limit, seconds
+GLOO_TESTS = (("tests/test_torch_cells.py",),
+              ("tests/test_torch_dryrun.py", "tests/test_torch_memory.py"))
+GLOO_TIMEOUT = 900
 #: the counted peak live bytes of train_moe's step against the measured peak:
 #: the widest ratio allowed either way (a tracker that lost or double-counted
 #: storages would land far outside it)
@@ -374,6 +401,15 @@ DRYRUN_CPU_READING = {"torch": "2.13.0+cpu", "hlo_flops_per_dev": 24449503985664
                       "bytes_per_dev_temp": 45772304408.0}
 #: HW_H100's HBM bytes against the card's total memory: largest relative gap
 HBM_MATCH = 0.03
+#: remat="dots" on train_moe's step in fp32: loss (relative) and each gradient
+#: leaf (relative L2) against the block remat's.  A remat recomputes the same
+#: ops; MoE's index backward adds with atomics, whose order may change the
+#: fp32 sums by about 1e-7 of their size (the block step run twice is printed
+#: beside it; on an H100 both differences read 0)
+DOTS_FP32_LIMIT = 1e-5
+#: scripts/perf_iter_torch.py's cell and remat settings (each a --set), and
+#: the time limit of both counts, seconds
+PERF_ITER_CELL, PERF_ITER_REMATS, PERF_ITER_TIMEOUT = (MOE_ARCH, "train_4k"), ("dots", "block"), 900
 
 
 class SmokeFailure(Exception):
@@ -487,8 +523,63 @@ def kernel_check(torch, fa_kernel, fa_ref, device):
             del want, err, atol, share
         worst = max(worst, row["max_abs_err_plain"])
         rows.append(row)
-    emit({"phase": "kernel_check", "ok": True, "cases": rows})
-    return worst
+    acc_rows, acc_worst = accum_check(torch, fa_kernel, fa_ref, device)
+    emit({"phase": "kernel_check", "ok": True, "cases": rows, "accum_bf16_cases": acc_rows})
+    return max(worst, acc_worst)
+
+
+def accum_check(torch, fa_kernel, fa_ref, device):
+    """The kernels' attn_accum_bf16 mode on ``fa_kernel.ACC_CASES``, bf16
+    inputs (the mma.sync kernel) and fp32 ones (the fp32 kernel): against
+    the plain chunked form with ``accum_bf16`` element by element
+    (ACC_TOL), and against fp32 truth by the mean error (ACC_MEAN_RATIO),
+    where the fp32-accumulating kernel on the same inputs must fail the
+    latter.
+    Returns (rows, the largest absolute error against the plain form)."""
+    ACC_TOL, ACC_MEAN_RATIO = fa_kernel.ACC_TOL, fa_kernel.ACC_MEAN_RATIO
+    rows, worst = [], 0.0
+    for i, (case, chunk) in enumerate(fa_kernel.ACC_CASES):
+        *_, causal, window = case
+        for dt in ("bfloat16", "float32"):
+            q, k, v = attn_inputs(case, getattr(torch, dt), 300 + i, device, torch)
+            path = "mma.sync" if dt == "bfloat16" else "fp32"
+            counts = flash_counts(fa_kernel)
+            got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                accum_chunk=chunk).float()
+            torch.cuda.synchronize()
+            took = tuple(a - b for a, b in zip(flash_counts(fa_kernel), counts))
+            want = {"mma.sync": (1, 0, 1, 0), "fp32": (1, 0, 0, 1)}[path]
+            check(took == want, f"accum_bf16 case {case} {dt}: launches (all, TMA, mma.sync, "
+                                f"fp32) {took}, want one on the {path} path")
+            plain = fa_ref.chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                                             accum_bf16=True).float()
+            truth = fa_ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                         window=window)
+            f32_acc = fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                                    window=window).float()
+            scale = truth.abs().mean(dim=-1, keepdim=True).clamp(min=1e-30)
+            err = (got - plain).abs()
+            share = err / (ACC_TOL * (plain.abs() + plain.abs().mean(dim=-1, keepdim=True)))
+            mean_err = lambda o: ((o - truth).abs() / scale).mean().item()
+            m_plain = mean_err(plain)
+            row = {"case": list(case), "accum_chunk": chunk, "dtype": dt, "path": path,
+                   "max_abs_err_plain": err.max().item(),
+                   "max_err_share_of_limit_plain": share.max().item(),
+                   "mean_err_vs_fp32_plain": m_plain,
+                   "mean_err_ratio_vs_fp32": mean_err(got) / m_plain,
+                   "fp32_accumulating_mean_err_ratio": mean_err(f32_acc) / m_plain}
+            rows.append(row)
+            worst = max(worst, row["max_abs_err_plain"])
+            check(row["max_err_share_of_limit_plain"] <= 1.0,
+                  f"accum_bf16 kernel vs the plain form: {row}")
+            band = lambda r: 1 / ACC_MEAN_RATIO <= r <= ACC_MEAN_RATIO
+            check(band(row["mean_err_ratio_vs_fp32"]),
+                  f"accum_bf16 kernel's error against fp32 is not the plain form's: {row}")
+            check(not band(row["fp32_accumulating_mean_err_ratio"]),
+                  f"the fp32-accumulating kernel lands inside ACC_MEAN_RATIO: the check "
+                  f"tells nothing apart: {row}")
+            del q, k, v, got, plain, truth, f32_acc, scale, err, share
+    return rows, worst
 
 
 def kernel_times(torch, fa_kernel, fa_ref, F, device):
@@ -526,13 +617,23 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
             return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **(kw or sdpa))
 
         row["library_ms"] = time_ms(lib, torch)
+        # attn_accum_bf16 at the model's chunk (the mma.sync kernel's
+        # bf16-accumulating instance) and its plain chunked form
+        acc_chunk = min(1024, Skv)
+        acc = lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                    accum_chunk=acc_chunk)
+        row["accum_bf16_chunk"] = acc_chunk
+        row["accum_bf16_ms"] = time_ms(acc, torch)
+        row["accum_bf16_plain_ms"] = time_ms(lambda: fa_ref.chunked_attention(
+            q, k, v, causal=causal, window=window, chunk=acc_chunk, accum_bf16=True), torch)
         row["library_max_abs_err"] = (lib().transpose(1, 2).float() - fa_ref.chunked_attention(
             q, k, v, causal=causal, window=window).float()).abs().max().item()
         row["kernel_ms"] = row["ms"]
         # device time per call from the profiler's kernel records, which an
         # enqueue-bound loop of events would not show
         timed = [("device_ms", lambda: fa_kernel.flash_attention_fwd(
-            q, k, v, causal=causal, window=window)), ("library_device_ms", lib)]
+            q, k, v, causal=causal, window=window)), ("library_device_ms", lib),
+                 ("accum_bf16_device_ms", acc)]
         if "attn_mask" in sdpa:
             causal_lib = lambda: lib(is_causal=True)
             row["library_is_causal_ms"] = time_ms(causal_lib, torch)
@@ -551,20 +652,25 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
                                                         / row["library_is_causal_device_ms"])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["accum_bf16_device_share_of_bound"] = row["bound_ms"] / row["accum_bf16_device_ms"]
+        row["accum_bf16_device_ratio_to_kernel"] = (row["accum_bf16_device_ms"]
+                                                    / row["device_ms"])
         out.append(row)
-        del q, k, v, qt, kt, vt, sdpa
+        del q, k, v, qt, kt, vt, sdpa, acc
     emit({"phase": "kernel_times", "rows": out})
     return out
 
 
 def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device,
-                     arch=ARCH, workloads=WORKLOADS, phase="serve"):
+                     arch=ARCH, workloads=WORKLOADS, phase="serve", accum=False):
     """The serving path: full-width serving of ``arch`` through
     repro_torch.launch.serve (h2o-danube-3-4b in ``serve``, llava with its
-    image positions in ``serve_vlm``).  Returns (rows, flash launches,
-    mma.sync launches)."""
+    image positions in ``serve_vlm``); with ``accum``, the first workload's
+    prefill again with ``attn_accum_bf16`` (``accum_bf16_prefill``).
+    Returns (rows, flash launches, mma.sync launches, the accum_bf16
+    prefill's row or None)."""
     from repro_torch.models.convert import flatten
-    results, launches = [], 0
+    results, launches, accum_row = [], 0, None
     for B, S, gen_len in workloads:
         args = serve.parse_args(["--arch", arch, "--no-scaled-down", "--requests", str(B),
                                  "--prompt-len", str(S), "--gen-len", str(gen_len),
@@ -660,10 +766,82 @@ def serve_full_width(torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, devi
         check(err <= LOGIT_SLACK * err_plain,
               f"logits {err} from the fp32 prefill; the plain bf16 one is {err_plain}")
         results.append(row)
+        if accum and accum_row is None:
+            accum_row = accum_bf16_prefill(torch, build, fa_kernel, cfg, params, batch,
+                                           logits_exact, pre_wall, device)
         del api, params, batch, res, logits, logits_plain, logits_exact, plain, exact, prefill
         del leaves
         torch.cuda.empty_cache()
-    return results, launches, sum(r["flash_mma_sync_launches"] for r in results)
+    return (results, launches, sum(r["flash_mma_sync_launches"] for r in results),
+            accum_row)
+
+
+@contextlib.contextmanager
+def plain_attention_dispatch():
+    """The flash dispatcher sends CUDA tensors to the plain chunked form,
+    with the call's chunk and ``accum_bf16``, instead of the kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    dispatch = fa_ops._dispatch
+    fa_ops._dispatch = lambda q, k, v, *, causal, window, chunk, accum_bf16=False: \
+        chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                          accum_bf16=accum_bf16)
+    try:
+        yield
+    finally:
+        fa_ops._dispatch = dispatch
+
+
+def accum_bf16_prefill(torch, build, fa_kernel, cfg, params, batch, logits_exact, tma_wall,
+                       device):
+    """The served model's prefill with ``attn_accum_bf16``: through the
+    kernel (the mma.sync kernel's bf16-accumulating instance, one launch a
+    layer), then through the plain chunked form with ``accum_bf16``: the
+    kernel's logits are within LOGIT_SLACK times the plain form's error
+    against the fp32 prefill of the plain form's logits, and their own
+    error against the fp32 prefill is the plain form's within LOGIT_SLACK
+    either way.  Walls beside the fp32-accumulating TMA prefill's
+    (``tma_wall``, ms)."""
+    api = build(dataclasses.replace(cfg, attn_accum_bf16=True), device)
+
+    def prefill():
+        return api.prefill(params, batch)
+
+    with torch.inference_mode():
+        prefill()  # warm-up
+        reset_flash_counts(fa_kernel)
+        logits, _, _ = prefill()
+        torch.cuda.synchronize()
+        counts = flash_counts(fa_kernel)
+        wall = statistics.median(wall_ms(torch, prefill, 3))
+        with plain_attention_dispatch():
+            before = flash_counts(fa_kernel)
+            logits_plain, _, _ = prefill()
+            plain_wall = statistics.median(wall_ms(torch, prefill, 3))
+            check(flash_counts(fa_kernel) == before,
+                  "the plain accum_bf16 prefill launched the kernel")
+    check(counts == (cfg.n_layers, 0, cfg.n_layers, 0),
+          f"accum_bf16 prefill: launches (all, TMA, mma.sync, fp32) {counts}, want "
+          f"{cfg.n_layers} on the mma.sync path")
+    check(bool(torch.isfinite(logits).all()), "non-finite accum_bf16 prefill logits")
+    err = (logits - logits_exact).abs().max().item()
+    err_plain = (logits_plain - logits_exact).abs().max().item()
+    B, S = batch["tokens"].shape
+    row = {"arch": ARCH, "requests": B, "prompt_len": S,
+           "attn_chunk": min(cfg.attn_chunk, S), "flash_launches": counts[0],
+           "flash_mma_sync_launches": counts[2], "flash_fp32_launches": counts[3],
+           "max_abs_logit_diff_vs_plain": (logits - logits_plain).abs().max().item(),
+           "max_abs_logit_err_vs_fp32": err, "plain_max_abs_logit_err_vs_fp32": err_plain,
+           "logit_err_ratio": err / err_plain, "wall_ms": wall, "plain_wall_ms": plain_wall,
+           "tma_fp32_accumulating_wall_ms": tma_wall}
+    emit({"phase": "serve_accum_bf16", **row})
+    check(row["max_abs_logit_diff_vs_plain"] <= LOGIT_SLACK * err_plain,
+          f"accum_bf16 logits {row['max_abs_logit_diff_vs_plain']} from the plain accum_bf16 "
+          f"prefill's; that one is {err_plain} from the fp32 prefill")
+    check(1 / LOGIT_SLACK <= err / err_plain <= LOGIT_SLACK,
+          f"accum_bf16 logits {err} from the fp32 prefill; the plain accum_bf16 one is "
+          f"{err_plain}")
+    return row
 
 
 def checksum_inputs(torch, device):
@@ -1616,9 +1794,9 @@ def flash_calls(fa_kernel):
     calls still run the kernel and count as launches."""
     calls = []
 
-    def fwd(q, k, v, *, causal, window):
+    def fwd(q, k, v, *, causal, window, **kw):
         calls.append((causal, q.shape[1], k.shape[1]))
-        return kernel_fwd(q, k, v, causal=causal, window=window)
+        return kernel_fwd(q, k, v, causal=causal, window=window, **kw)
 
     kernel_fwd, fa_kernel.flash_attention_fwd = fa_kernel.flash_attention_fwd, fwd
     try:
@@ -2498,10 +2676,8 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         check(warm_fa == (n_step * MOE_WARM_STEPS, n_step * MOE_WARM_STEPS, 0, 0),
               f"flash launches {warm_fa} in {MOE_WARM_STEPS} warm steps")
         wall = statistics.median(walls)
-        ranges = ("train_step/loss_and_grad", "train_step/adamw",
-                  "flash_attention/plain_backward", *MOE_RANGES)
         by_name, n_launches, spans, cpu_side, busy_in, union, pwall = profile_device(
-            torch, lambda: step_fn(state, batch), ranges, complete=lambda counts: sum(
+            torch, lambda: step_fn(state, batch), MOE_STEP_RANGES, complete=lambda counts: sum(
                 c for n, c in counts.items() if "attn_fwd_bf16_tma" in n) == n_step)
         check(all(math.isfinite(t.float().sum().item()) for t in flatten(state).values()),
               "non-finite training state after the warm steps")
@@ -2525,6 +2701,13 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
                  "adamw_ms": busy_in["train_step/adamw"]}
         split["rest_ms"] = busy - sum(split.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+        # remat="dots" on the same model, state and batch (its timed steps
+        # train the state on, before the save)
+        block_profile = {"device_busy_ms": busy, **idle_of(union, pwall),
+                         "kernel_launches": n_launches, "device_busy_ms_in_range": busy_in}
+        dots_fa, dots_row = train_moe_dots(torch, s, state, batch, fa_kernel, step_memory,
+                                           wall, block_profile, device)
 
         # the trained parameters, saved for serve_sharded: lanesum32 on the card
         params = state["params"]
@@ -2557,10 +2740,148 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         emit({"phase": "train_moe", **row})
         del state, s, leaves, batch, numerics
         torch.cuda.empty_cache()
-        # the main path's launches: run_training's steps and the save
-        return fa_run[0], fa_run[2], cs_kernel.launches, params, row
+        # the main path's launches: run_training's steps and the save, and
+        # the dots steps'
+        return fa_run[0], fa_run[2], cs_kernel.launches, params, row, dots_fa, dots_row
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mm_counts(torch, api, params, batch):
+    """({op: count} in the forward, {op: count} in the backward) of the
+    matrix products (``aten.mm``, ``aten.addmm``, ``aten.bmm``) one loss and
+    gradient dispatches: cuBLAS launches, the kernels' ctypes calls apart."""
+    from repro_torch.models.convert import flatten, unflatten
+    from repro_torch.roofline import ProductCounter
+
+    leaves = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
+    with ProductCounter() as fwd:
+        loss, _ = api.loss(unflatten(params, leaves), batch)
+    with ProductCounter() as bwd:
+        torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    return dict(fwd.ops), dict(bwd.ops)
+
+
+def loss_and_grad_memory(torch, api, params, batch, device):
+    """(bytes held from the end of the forward to the backward, the peak of
+    the forward and backward), both above what was allocated before one
+    loss and gradient on the card: the first is what autograd and the
+    checkpoint keep for the backward (under "dots" the saved products)."""
+    from repro_torch.models.convert import flatten, unflatten
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    leaves = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
+    loss, _ = api.loss(unflatten(params, leaves), batch)
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device) - before
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - before
+    del grads, loss
+    return held, peak
+
+
+def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s,
+                   block_profile, device):
+    """``remat="dots"`` (the selective checkpoint: matrix products without a
+    batch dimension saved, the rest recomputed) on ``train_moe``'s model,
+    state and batch: one fp32 loss and gradient against the block remat's
+    within DOTS_FP32_LIMIT (the block step run twice gives the atomics'
+    spread); the products each backward dispatches under both; then
+    MOE_WARM_STEPS timed bf16 steps through make_train_step, 2 TMA flash
+    launches per layer and step (the forward, then the recompute: the
+    kernel is not a saved product), one profiled step's device busy time
+    and idle share, and one more step's peak above what was allocated
+    before it, beside the block steps' (``block_memory``, ``block_step_s``,
+    ``block_profile``); the bytes each holds from its forward to its
+    backward (dots' above block's: the saved products) and the peak of its
+    loss and gradient alone.  Returns (flash launches, the row)."""
+    from repro_torch.models.convert import flatten, unflatten
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.steps import make_train_step, value_and_grad
+    cfg = s.api.cfg
+    dots = build(dataclasses.replace(cfg, remat="dots"), device)
+    # fp32 numerics: the same weights in fp32, block against dots
+    params32 = unflatten(state["params"], {k: v.float() for k, v in
+                                           flatten(state["params"]).items()})
+    ex_block = build(dataclasses.replace(cfg, compute_dtype="float32"), device)
+    ex_dots = build(dataclasses.replace(cfg, compute_dtype="float32", remat="dots"), device)
+    loss_b, m_b, g_b = value_and_grad(ex_block, params32, batch)
+    g_b = flatten(g_b)
+    loss_b2, _, g_b2 = value_and_grad(ex_block, params32, batch)
+    spread = {p: rel_l2(g, g_b[p]) for p, g in flatten(g_b2).items()}
+    del g_b2
+    loss_d, m_d, g_d = value_and_grad(ex_dots, params32, batch)
+    leaves = {p: rel_l2(g, g_b[p]) for p, g in flatten(g_d).items()}
+    del g_d, g_b, params32
+    loss_rel = abs(loss_d.item() - loss_b.item()) / abs(loss_b.item())
+    # the products each backward dispatches, bf16
+    fwd_b, bwd_b = mm_counts(torch, s.api, state["params"], batch)
+    fwd_d, bwd_d = mm_counts(torch, dots, state["params"], batch)
+    torch.cuda.empty_cache()
+    # what each holds for its backward, and the peak of its loss and gradient
+    held_b, grad_peak_b = loss_and_grad_memory(torch, s.api, state["params"], batch, device)
+    held_d, grad_peak_d = loss_and_grad_memory(torch, dots, state["params"], batch, device)
+    torch.cuda.empty_cache()
+    # timed bf16 steps and the peak of one more
+    step_fn = make_train_step(dots, s.opt)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    reset_flash_counts(fa_kernel)
+    walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), MOE_WARM_STEPS)]
+    fa = flash_counts(fa_kernel)
+    n_step = 2 * cfg.n_layers
+    by_name, n_launches, _, _, busy_in, union, pwall = profile_device(
+        torch, lambda: step_fn(state, batch), MOE_STEP_RANGES, complete=lambda counts: sum(
+            c for n, c in counts.items() if "attn_fwd_bf16_tma" in n) == n_step)
+    profile = {"device_busy_ms": sum(by_name.values()), **idle_of(union, pwall),
+               "kernel_launches": n_launches, "device_busy_ms_in_range": busy_in}
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, metrics = step_fn(state, batch)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - before
+    wall = statistics.median(walls)
+    worst = max(leaves, key=leaves.get)
+    row = {"arch": MOE_ARCH, "remat": "dots", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "loss_fp32_dots": loss_d.item(), "loss_fp32_block": loss_b.item(),
+           "loss_fp32_block_rerun": loss_b2.item(), "loss_rel_diff": loss_rel,
+           "moe_aux_abs_diff": abs(m_d["moe_aux"].item() - m_b["moe_aux"].item()),
+           "grad_max_rel_l2": leaves[worst], "grad_max_rel_l2_leaf": worst,
+           "block_rerun_grad_max_rel_l2": max(spread.values()), "fp32_limit": DOTS_FP32_LIMIT,
+           "forward_products_block": fwd_b, "forward_products_dots": fwd_d,
+           "backward_products_block": bwd_b, "backward_products_dots": bwd_d,
+           "backward_mm_saved": bwd_b.get("mm", 0) - bwd_d.get("mm", 0),
+           "flash_launches_per_step": fa[0] / MOE_WARM_STEPS,
+           "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+           "block_median_step_s": block_step_s, "step_s_over_block": wall / block_step_s,
+           "profile": profile, "block_profile": block_profile,
+           "busy_over_block": profile["device_busy_ms"] / block_profile["device_busy_ms"],
+           "step_peak_above_allocated": peak,
+           "block_step_peak_above_allocated": block_memory["peak_above_allocated"],
+           "peak_over_block": peak / block_memory["peak_above_allocated"],
+           "held_for_backward": held_d, "block_held_for_backward": held_b,
+           "held_over_block": held_d - held_b,
+           "loss_and_grad_peak": grad_peak_d, "block_loss_and_grad_peak": grad_peak_b,
+           "last_loss": metrics["loss"].item()}
+    emit({"phase": "train_moe_dots", **row})
+    check(fa == (n_step * MOE_WARM_STEPS, n_step * MOE_WARM_STEPS, 0, 0),
+          f"flash launches (all, TMA, mma.sync, fp32) {fa} in {MOE_WARM_STEPS} dots steps, "
+          f"want {n_step} a step on the TMA path")
+    check(loss_rel <= DOTS_FP32_LIMIT and row["moe_aux_abs_diff"] <= DOTS_FP32_LIMIT,
+          f"dots loss {loss_rel} / moe_aux {row['moe_aux_abs_diff']} from block's")
+    for path, r in leaves.items():
+        check(r <= DOTS_FP32_LIMIT, f"dots gradient of {path}: {r} from block's")
+    check(fwd_b == fwd_d and bwd_d.get("mm", 0) < bwd_b.get("mm", 0)
+          and bwd_d.get("bmm", 0) == bwd_b.get("bmm", 0),
+          f"products: forward {fwd_b} / {fwd_d}, backward block {bwd_b}, dots {bwd_d}")
+    check(held_d > held_b, f"dots holds {held_d} bytes for its backward, block {held_b}")
+    check(math.isfinite(row["last_loss"]), f"dots step loss {row['last_loss']}")
+    return fa[0], row
 
 
 def free_port() -> int:
@@ -3042,12 +3363,12 @@ def federate(torch, kernels, ckpt_dir, trained, device, smi, hold_bytes=FED_HOLD
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def background(argv, log_path):
+def background(argv, log_path, cwd=ROOT):
     """``argv`` in a process group of its own at the lowest CPU priority,
     output to ``log_path``: the phases' host work goes first."""
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     with open(log_path, "w") as log:
-        return subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+        return subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=cwd,
                                 start_new_session=True, preexec_fn=lambda: os.nice(19))
 
 
@@ -3061,13 +3382,28 @@ def start_dryrun(results_dir):
                       os.path.join(results_dir, "dryrun.log"))
 
 
+def start_perf_iter(results_dir):
+    """scripts/perf_iter_torch.py on PERF_ITER_CELL under each of
+    PERF_ITER_REMATS, one after the other in one process group, records
+    appended under ``results_dir``: the port's dry run under this machine's
+    torch with the reference's perf-iteration toggles."""
+    arch, shape = PERF_ITER_CELL
+    script = os.path.join(ROOT, "scripts", "perf_iter_torch.py")
+    runs = [f"{sys.executable} {script} --arch {arch} --shape {shape} --set remat={r} "
+            f"--tag remat_{r} --full-memory" for r in PERF_ITER_REMATS]
+    return background(["bash", "-c", " && ".join(runs)],
+                      os.path.join(results_dir, "perf_iter.log"), cwd=results_dir)
+
+
 def start_sharded_gloo(results_dir):
-    """pytest over GLOO_TESTS in its own process, beside the build: the
-    sharding layer's gloo groups on the machine's CPU (ROADMAP C15)."""
-    return background([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-                       *GLOO_TESTS, "-k", "not match_reference", "--junitxml",
-                       os.path.join(results_dir, "gloo.xml")],
-                      os.path.join(results_dir, "gloo.log"))
+    """pytest over each group of GLOO_TESTS in a process of its own, beside
+    the build: the sharding layer's gloo groups on the machine's CPU
+    (ROADMAP C15).  Returns the processes."""
+    return [background([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                        *group, "-k", "not match_reference", "--junitxml",
+                        os.path.join(results_dir, f"gloo{i}.xml")],
+                       os.path.join(results_dir, f"gloo{i}.log"))
+            for i, group in enumerate(GLOO_TESTS)]
 
 
 def stop(proc) -> None:
@@ -3087,27 +3423,30 @@ def wait_for(proc, limit, t0, what):
     return time.perf_counter() - t0
 
 
-def sharded_gloo_phase(proc, results_dir, t0, torch_version):
-    """Waits for ``start_sharded_gloo``'s pytest; every case must pass."""
+def sharded_gloo_phase(procs, results_dir, t0, torch_version):
+    """Waits for ``start_sharded_gloo``'s pytest processes; every case must
+    pass."""
     import xml.etree.ElementTree as ET
-    seconds = wait_for(proc, GLOO_TIMEOUT, t0, "the gloo cases")
-    with open(os.path.join(results_dir, "gloo.log")) as f:
-        tail = f.read().splitlines()[-12:]
-    outcome, own = {}, None
-    xml_path = os.path.join(results_dir, "gloo.xml")
-    if os.path.exists(xml_path):
-        root = ET.parse(xml_path).getroot()
-        own = sum(float(suite.get("time", 0)) for suite in root.iter("testsuite"))
-        for case in root.iter("testcase"):
-            kind = next((c.tag for c in case if c.tag in ("failure", "error", "skipped")),
-                        "passed")
-            outcome[f"{case.get('classname', '').split('.')[-1]}::{case.get('name')}"] = kind
+    outcome, own, tails, seconds = {}, [], [], []
+    for i, proc in enumerate(procs):
+        seconds.append(wait_for(proc, GLOO_TIMEOUT, t0, "the gloo cases"))
+        with open(os.path.join(results_dir, f"gloo{i}.log")) as f:
+            tails += f.read().splitlines()[-6:]
+        xml_path = os.path.join(results_dir, f"gloo{i}.xml")
+        if os.path.exists(xml_path):
+            root = ET.parse(xml_path).getroot()
+            own.append(sum(float(suite.get("time", 0)) for suite in root.iter("testsuite")))
+            for case in root.iter("testcase"):
+                kind = next((c.tag for c in case if c.tag in ("failure", "error", "skipped")),
+                            "passed")
+                outcome[f"{case.get('classname', '').split('.')[-1]}::{case.get('name')}"] = kind
     bad = {k: v for k, v in outcome.items() if v != "passed"}
+    codes = [proc.returncode for proc in procs]
     row = {"ranks": "CPU processes of gloo groups, not the card", "torch": torch_version,
            "files": list(GLOO_TESTS), "passed": len(outcome) - len(bad), "not_passed": bad,
            "pytest_seconds": own, "waited_until_s": seconds, "cases": outcome}
-    check(proc.returncode == 0 and outcome and not bad,
-          f"the gloo cases failed (exit {proc.returncode}): {bad} | {' | '.join(tail)}")
+    check(codes == [0] * len(procs) and outcome and not bad,
+          f"the gloo cases failed (exits {codes}): {bad} | {' | '.join(tails)}")
     emit({"phase": "sharded_gloo", **row})
     return row
 
@@ -3163,19 +3502,52 @@ def dryrun_phase(proc, results_dir, t0, torch_version):
     return row
 
 
-def roofline_phase(torch, moe_row):
+def perf_iter_phase(proc, results_dir, t0, torch_version):
+    """Waits for ``start_perf_iter``'s counts: one record per remat, the
+    three roofline terms against HW_H100 and the full-depth temps; "dots"
+    counts fewer FLOPs than "block" (its recompute skips the saved
+    products) and holds at least block's temps (the saved outputs)."""
+    seconds = wait_for(proc, PERF_ITER_TIMEOUT, t0, "perf_iter_torch.py")
+    with open(os.path.join(results_dir, "perf_iter.log")) as f:
+        tail = [ln for ln in f.read().splitlines() if "]:W" not in ln][-6:]
+    check(proc.returncode == 0, f"perf_iter_torch.py failed (exit {proc.returncode}): "
+                                f"{' | '.join(tail)}")
+    with open(os.path.join(results_dir, "results", "torch", "perf_iters.jsonl")) as f:
+        recs = {r["tag"]: r for r in map(json.loads, f)}
+    keys = ("hlo_flops_per_dev", "hlo_bytes_per_dev", "coll_bytes_per_dev", "t_compute",
+            "t_memory", "t_collective", "bottleneck", "useful_ratio", "bytes_per_dev_argument",
+            "bytes_per_dev_temp", "wall_seconds")
+    runs = {r: {k: recs[f"remat_{r}"][k] for k in keys} for r in PERF_ITER_REMATS}
+    ratio = {k: runs["dots"][k] / runs["block"][k]
+             for k in ("hlo_flops_per_dev", "hlo_bytes_per_dev", "coll_bytes_per_dev",
+                       "bytes_per_dev_temp")}
+    row = {"cell": f"{PERF_ITER_CELL[0]} x {PERF_ITER_CELL[1]} @ 16x16", "torch": torch_version,
+           "hw": recs["remat_dots"]["hw"], "runs": runs, "dots_over_block": ratio,
+           "waited_until_s": seconds}
+    emit({"phase": "perf_iter", **row})
+    check(ratio["hlo_flops_per_dev"] < 1.0 and ratio["bytes_per_dev_temp"] >= 1.0,
+          f"dots against block: {ratio}")
+    return row
+
+
+def roofline_phase(torch, moe_row, dots_row):
     """``train_moe``'s step counted on ``meta`` (the same config, 2 x 2048
     tokens, one card, so no collectives) and set against HW_H100 beside the
     step's measured seconds and busy ms, and its peak live bytes above the
     train state and batch beside the same step's measured peak above what
     was allocated before it, and with the state's bytes beside the phase's
     ``max_memory_allocated``.  On ``meta`` the flash forward is counted as
-    the plain chunked form the dispatcher runs there."""
+    the plain chunked form the dispatcher runs there.  The same for
+    ``train_moe_dots``' step (``dots_row``): its peak against the measured
+    one, the bytes the dots forward holds for the backward above the block
+    forward's, and each remat's loss and gradient peak (the step's peak
+    is AdamW's, past the saved products), counted against measured,
+    within PEAK_MATCH either way."""
     from repro_torch.configs import get_config
     from repro_torch.models.common import ShapeConfig
     from repro_torch.models.registry import build, train_batch_specs
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.models.convert import flatten
+    from repro_torch.models.convert import flatten, unflatten
     from repro_torch.roofline import HW_H100, CostCounter, LiveBytes, cost_numbers, model_flops
     from repro_torch.runtime.steps import abstract_train_state, make_train_step
     cfg = get_config(MOE_ARCH)
@@ -3188,6 +3560,20 @@ def roofline_phase(torch, moe_row):
     with CostCounter() as counter, LiveBytes() as live:
         make_train_step(api, opt)(state, batch)
     nums, count_s = cost_numbers(counter.record()), time.perf_counter() - t0
+    dots = build(dataclasses.replace(cfg, remat="dots"), "meta")
+    with LiveBytes() as dots_live:
+        make_train_step(dots, opt)(state, batch)
+    held, grad_peak = {}, {}
+    for remat, a in (("block", api), ("dots", dots)):
+        leaves = {k: v.detach().requires_grad_() for k, v in flatten(state["params"]).items()}
+        with LiveBytes() as grad_live:
+            loss, _ = a.loss(unflatten(state["params"], leaves), batch)
+            held[remat] = grad_live.live
+            torch.autograd.grad(loss, list(leaves.values()))
+        grad_peak[remat] = grad_live.peak
+        del loss, leaves
+    measured_grad_peak = {"block": dots_row["block_loss_and_grad_peak"],
+                          "dots": dots_row["loss_and_grad_peak"]}
     mem = moe_row["step_memory"]
     mf = model_flops(cfg, shape)
     step_s, busy_ms = moe_row["median_step_s"], moe_row["profile"]["device_busy_ms"]
@@ -3207,11 +3593,33 @@ def roofline_phase(torch, moe_row):
            "peak_ratio": live.peak / mem["peak_above_allocated"],
            "counted_total_bytes": args + live.peak,
            "measured_max_memory_allocated": moe_row["max_memory_allocated"],
-           "total_ratio": (args + live.peak) / moe_row["max_memory_allocated"]}
+           "total_ratio": (args + live.peak) / moe_row["max_memory_allocated"],
+           "dots_counted_peak_above_arguments": dots_live.peak,
+           "dots_measured_step_peak_above_allocated": dots_row["step_peak_above_allocated"],
+           "dots_peak_ratio": dots_live.peak / dots_row["step_peak_above_allocated"],
+           "counted_held_for_backward": held,
+           "dots_counted_held_over_block": held["dots"] - held["block"],
+           "dots_measured_held_over_block": dots_row["held_over_block"],
+           "dots_held_over_block_ratio": ((held["dots"] - held["block"])
+                                          / dots_row["held_over_block"]),
+           "counted_loss_and_grad_peak": grad_peak,
+           "measured_loss_and_grad_peak": measured_grad_peak,
+           "loss_and_grad_peak_ratio": {r: grad_peak[r] / measured_grad_peak[r]
+                                        for r in grad_peak}}
     check(abs(HW_H100.hbm_bytes - total) <= HBM_MATCH * total,
           f"HW_H100.hbm_bytes {HW_H100.hbm_bytes} against the card's {total}")
     check(1 / PEAK_MATCH <= row["peak_ratio"] <= PEAK_MATCH,
           f"counted peak {live.peak} bytes against the measured {mem['peak_above_allocated']}")
+    check(1 / PEAK_MATCH <= row["dots_peak_ratio"] <= PEAK_MATCH,
+          f"counted dots peak {dots_live.peak} bytes against the measured "
+          f"{dots_row['step_peak_above_allocated']}")
+    check(held["dots"] > held["block"]
+          and 1 / PEAK_MATCH <= row["dots_held_over_block_ratio"] <= PEAK_MATCH,
+          f"bytes held for the backward, counted {held}, dots over block measured "
+          f"{dots_row['held_over_block']}")
+    check(all(1 / PEAK_MATCH <= r <= PEAK_MATCH
+              for r in row["loss_and_grad_peak_ratio"].values()),
+          f"loss and gradient peaks, counted {grad_peak}, measured {measured_grad_peak}")
     check(nums["flops"] >= mf and nums["coll"]["total"] == 0,
           f"counted {nums['flops']} FLOPs against the model's {mf}, "
           f"collectives {nums['coll']}")
@@ -3260,15 +3668,17 @@ def main() -> int:
           "peak_bytes_per_s": PEAK_BYTES_PER_S, "peak_bf16_flops": PEAK_BF16_FLOPS,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    for path in GLOO_TESTS:
+    for path in (path for group in GLOO_TESTS for path in group):
         if not os.path.exists(os.path.join(ROOT, path)):
             print(f"chip_smoke: no {path} beside {__file__}", file=sys.stderr)
             return 2
     dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     gloo_dir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    perf_dir = tempfile.mkdtemp(prefix="chip_smoke_perf_iter_")
     t_dryrun = time.perf_counter()
     dryrun = start_dryrun(dryrun_dir)
     gloo = start_sharded_gloo(gloo_dir)
+    perf_iter = start_perf_iter(perf_dir)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc per source
         logs = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
@@ -3289,8 +3699,8 @@ def main() -> int:
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
-        _, serve_fa, serve_sync = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
-                                                   ssm_kernel, device)
+        _, serve_fa, serve_sync, accum_row = serve_full_width(
+            torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device, accum=True)
         rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
         _, moe_fa, moe_sync = serve_moe(torch, serve, build, kernels, device)
         _, mamba_times, mamba_ssm, mamba_worst = mamba_layer(torch, kernels, ssm_ops, ssm_ref,
@@ -3298,43 +3708,49 @@ def main() -> int:
         ssm_worst = max(ssm_worst, mamba_worst)
         _, hybrid = serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
         _, whisper_fa, whisper_sync = serve_whisper(torch, serve, build, kernels, device)
-        _, vlm_fa, vlm_sync = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
-                                               ssm_kernel, device, arch=VLM_ARCH,
-                                               workloads=LLAVA_WORKLOADS, phase="serve_vlm")
+        _, vlm_fa, vlm_sync, _ = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
+                                                  ssm_kernel, device, arch=VLM_ARCH,
+                                                  workloads=LLAVA_WORKLOADS, phase="serve_vlm")
         train_fa, train_cs, mirror_cs, train_sync = train_full_width(
             torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device)
         torch.cuda.empty_cache()
         rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
             torch, launch_train, kernels, ssm_ops, ssm_ref, device)
         torch.cuda.empty_cache()
-        moe_train_fa, moe_train_sync, moe_train_cs, trained, moe_row = train_moe(
-            torch, launch_train, kernels, ckpt_dir, device)
+        (moe_train_fa, moe_train_sync, moe_train_cs, trained, moe_row, dots_fa,
+         dots_row) = train_moe(torch, launch_train, kernels, ckpt_dir, device)
         torch.cuda.empty_cache()
         _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
         fed = federate(torch, kernels, ckpt_dir, trained, device, smi[:1])
         del trained
         sharded_gloo_phase(gloo, gloo_dir, t_dryrun, torch.__version__)
         dryrun_phase(dryrun, dryrun_dir, t_dryrun, torch.__version__)
-        roofline_phase(torch, moe_row)
+        perf_iter_phase(perf_iter, perf_dir, t_dryrun, torch.__version__)
+        roofline_phase(torch, moe_row, dots_row)
     except SmokeFailure as exc:
         emit({"ok": False, "error": str(exc)})
         return 1
     finally:
-        for proc in (dryrun, gloo):
+        for proc in (dryrun, *gloo, perf_iter):
             stop(proc)
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        shutil.rmtree(dryrun_dir, ignore_errors=True)
-        shutil.rmtree(gloo_dir, ignore_errors=True)
+        for path in (ckpt_dir, dryrun_dir, gloo_dir, perf_dir):
+            shutil.rmtree(path, ignore_errors=True)
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
                    "serve_moe": moe_sync, "serve_whisper": whisper_sync, "serve_vlm": vlm_sync,
                    **train_sync, "train_rwkv": rwkv_train_sync, "train_moe": moe_train_sync,
                    "serve_sharded": sharded["sync"]}
-    fa_by_path = {"serve": serve_fa, "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
+    fa_by_path = {"serve": serve_fa, "serve_accum_bf16": accum_row["flash_launches"],
+                  "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
                   "serve_hybrid": hybrid["flash"], "serve_whisper": whisper_fa,
                   "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0,
-                  "train_moe": moe_train_fa, "serve_sharded": sharded["flash"], "federate": 0}
+                  "train_moe": moe_train_fa, "train_moe_dots": dots_fa,
+                  "serve_sharded": sharded["flash"], "federate": 0}
+    # the bf16-accumulating instances' launches (attn_accum_bf16): the
+    # mma.sync kernel's in serve_accum_bf16, the fp32 kernel's on no main path
+    accum_by_path = {"serve_accum_bf16": {"mma_sync": accum_row["flash_mma_sync_launches"],
+                                          "fp32": accum_row["flash_fp32_launches"]}}
     cs_by_path = {"serve": 0, "serve_rwkv": 0, "serve_moe": 0, "mamba_layer": 0,
                   "serve_hybrid": 0, "serve_whisper": 0, "serve_vlm": 0, "train": train_cs,
                   "train_mirror_restore": mirror_cs, "train_rwkv": 0, "train_moe": moe_train_cs,
@@ -3348,11 +3764,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "kernel": "attn_fwd_bf16_tma (TMA, wgmma); attn_fwd_f32 on serve_hybrid's and "
-                  "serve_sharded's fp32 paths",
+                  "serve_sharded's fp32 paths; attn_fwd_bf16_sync<true> (attn_accum_bf16) "
+                  "in serve_accum_bf16",
         "launches": sum(fa_by_path.values()), "launches_by_path": fa_by_path,
-        # read in each run of each main path, and checked to be 0 there
+        # read in each fp32-accumulating run of each main path, checked to be 0
         "mma_sync_path_launches_by_run": sync_by_run,
         "mma_sync_path_launches": sum(sync_by_run.values()),
+        "accum_bf16_launches_by_path": accum_by_path,
         "max_abs_err": worst, **{k: times[0][k] for k in keys}, "shapes": times}, {
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",

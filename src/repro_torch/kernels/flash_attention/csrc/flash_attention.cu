@@ -43,6 +43,18 @@
 //    or stride not a multiple of 16 bytes, so any dh % 8 != 0): mma.sync
 //    m16n8k16, four warps of 16 q rows, a two-stage cp.async ring, ldmatrix.
 //  * attn_fwd_f32, fp32 FMA on CUDA cores, no TF32, for the fp32 checks.
+// The mma.sync and fp32 kernels also compute the reference's attn_accum_bf16
+// mode (src/repro/models/layers.py::chunked_attention with accum_bf16), for a
+// Params::accum_chunk > 0, in their ACC_BF16 instances: P and V are rounded
+// to bf16 and P V accumulates in fp32 within a KV chunk of accum_chunk rows;
+// at each chunk's end that partial sum is rounded to bf16 and folded into a
+// bf16 accumulator, acc = bf16(bf16(acc * bf16(f)) + bf16(partial)), f the
+// rescale from the previous fold's row max; m and l stay fp32.  A chunk
+// boundary inside a KV tile (or an mma k-step) splits its keys by a mask.  The
+// row max moves per tile, not per chunk as in the reference, so P is rounded
+// at another scale and the result is not bit-equal to the plain version.  The
+// ACC_BF16 = false instances are the fp32-accumulating kernels unchanged.
+// It is a numerics mode, not a speed path: the TMA kernel has no such mode.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,6 +81,8 @@ struct Params {
   float scale;
   int vec;  // every row start is 16-byte aligned: load 16 bytes at a time
   int col2;  // TMA kernel: first column of a tile's second 64-column box
+  int accum_chunk;  // mma.sync / fp32 kernels: > 0 for bf16 accumulation over
+                    // KV chunks of this many rows (ACC_BF16), 0 for fp32
 };
 
 __device__ __forceinline__ bool allowed(const Params& p, int qp, int kp) {
@@ -85,6 +99,23 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int q0, int& t0, int& 
   if (p.window >= 0) lo = max(lo, q0 - p.window + 1);
   t0 = lo / KN;
   t1 = hi > lo ? (hi + KN - 1) / KN : t0;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// One element of the bf16 accumulator at a chunk's end:
+// bf16(bf16(acc * fb) + bf16(part)), fb the rescale already rounded to bf16.
+__device__ __forceinline__ float fold_bf16(float acc, float fb, float part) {
+  return bf16_round(bf16_round(acc * fb) + bf16_round(part));
+}
+
+// The rescale of a fold, in bf16: 2^(mb - m) (exp(mb - m) when natural) from
+// the previous fold's row max mb to the running max m; 0 before any key.
+template <bool BASE2>
+__device__ __forceinline__ float fold_scale(float mb, float m) {
+  return mb == -INFINITY ? 0.f : bf16_round(BASE2 ? exp2f(mb - m) : expf(mb - m));
 }
 
 template <typename T> __device__ __forceinline__ T zero();
@@ -183,14 +214,24 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The bits of a packed pair of bf16 P values (keys key and key + 1) whose
+// keys lie in [lo, hi); the others zeroed.
+__device__ __forceinline__ uint32_t keep_keys(uint32_t w, int key, int lo, int hi) {
+  const uint32_t lo_half = key >= lo && key < hi ? 0x0000ffffu : 0u;
+  const uint32_t hi_half = key + 1 >= lo && key + 1 < hi ? 0xffff0000u : 0u;
+  return w & (lo_half | hi_half);
+}
+
 // Fragment layout of m16n8k16 (g = lane / 4, c = lane % 4):
 //   A (16x16, row): a0 (g, 2c..2c+1)  a1 (g+8, 2c..)  a2 (g, 2c+8..)  a3 (g+8, 2c+8..)
 //   B (16x8, col):  b0 (k 2c..2c+1, n g)  b1 (k 2c+8..2c+9, n g)
 //   C (16x8):       c0,c1 (g, 2c..2c+1)   c2,c3 (g+8, 2c..2c+1)
 // K tiles are stored [kv][d], so ldmatrix gives Q K^T's B fragments as they are;
 // V tiles are stored [kv][d] too, and ldmatrix.trans gives P V's.
-// 68 KB of shared memory and at most 168 registers a thread let 3 blocks share an SM.
-__global__ void __launch_bounds__(NT_BF16, 3) attn_fwd_bf16_sync(Params p) {
+// 68 KB of shared memory and at most 168 registers a thread let 3 blocks share
+// an SM; the ACC_BF16 instance (a bf16 accumulator beside the fp32 one) 2.
+template <bool ACC_BF16>
+__global__ void __launch_bounds__(NT_BF16, ACC_BF16 ? 2 : 3) attn_fwd_bf16_sync(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* KVs = reinterpret_cast<bf16*>(smem);  // stage s: K tile at 2 s BN LDH, then V
   bf16* Qs = KVs + 2 * BN * LDH;  // stage 1's K buffer, free until tile t0 + 1 loads
@@ -237,6 +278,31 @@ __global__ void __launch_bounds__(NT_BF16, 3) attn_fwd_bf16_sync(Params p) {
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the denominator
   const float sl2 = p.scale * 1.4426950408889634f;
   const int qp0 = q0 + r0, qp1 = qp0 + 8;
+  // ACC_BF16: acc holds the current chunk's partial sum, ab the bf16
+  // accumulator (rows r0 and r0 + 8, columns 2c, 2c + 1 of each d-tile),
+  // relative to the row maxima mb0, mb1 of the last fold
+  [[maybe_unused]] __nv_bfloat162 ab[ACC_BF16 ? DP / 8 : 1][2];
+  [[maybe_unused]] float mb0 = -INFINITY, mb1 = -INFINITY;
+  if constexpr (ACC_BF16) {
+#pragma unroll
+    for (int dn = 0; dn < DP / 8; ++dn) ab[dn][0] = ab[dn][1] = __floats2bfloat162_rn(0.f, 0.f);
+  }
+  [[maybe_unused]] auto fold = [&]() {
+    if constexpr (ACC_BF16) {
+      const float f0 = fold_scale<true>(mb0, m0), f1 = fold_scale<true>(mb1, m1);
+#pragma unroll
+      for (int dn = 0; dn < DP / 8; ++dn) {
+        const float2 a0 = __bfloat1622float2(ab[dn][0]), a1 = __bfloat1622float2(ab[dn][1]);
+        ab[dn][0] = __floats2bfloat162_rn(fold_bf16(a0.x, f0, acc[dn][0]),
+                                          fold_bf16(a0.y, f0, acc[dn][1]));
+        ab[dn][1] = __floats2bfloat162_rn(fold_bf16(a1.x, f1, acc[dn][2]),
+                                          fold_bf16(a1.y, f1, acc[dn][3]));
+        acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+      }
+      mb0 = m0;
+      mb1 = m1;
+    }
+  };
 
   for (int t = t0; t < t1; ++t) {
     const int st = (t - t0) % STAGES;
@@ -319,15 +385,40 @@ __global__ void __launch_bounds__(NT_BF16, 3) attn_fwd_bf16_sync(Params p) {
                              pack_f32(s[2 * j][2], s[2 * j][3]),
                              pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
                              pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
+      auto pv = [&](const uint32_t (&pa)[4]) {
 #pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t vb[4];  // b0, b1 of d-tiles 2dp and 2dp + 1
-        ldsm_x4_t(vb, Vs + (j * 16 + (lane & 15)) * LDH + (2 * dp + (lane >> 4)) * 8);
-        mma_bf16(acc[2 * dp], a, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], a, vb[2], vb[3]);
+        for (int dp = 0; dp < DP / 16; ++dp) {
+          uint32_t vb[4];  // b0, b1 of d-tiles 2dp and 2dp + 1
+          ldsm_x4_t(vb, Vs + (j * 16 + (lane & 15)) * LDH + (2 * dp + (lane >> 4)) * 8);
+          mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      };
+      if constexpr (!ACC_BF16) {
+        pv(a);
+      } else {
+        // the k-step's 16 keys in segments between chunk boundaries; a
+        // segment ending on a boundary folds (the same for the whole warp)
+        const int kb = k0 + 16 * j;
+        for (int lo = kb; lo < kb + 16;) {
+          const int nb = (lo / p.accum_chunk + 1) * p.accum_chunk;
+          const int hi = min(nb, kb + 16);
+          if (lo == kb && hi == kb + 16) {
+            pv(a);
+          } else {
+            const uint32_t am[4] = {keep_keys(a[0], kb + 2 * c, lo, hi),
+                                    keep_keys(a[1], kb + 2 * c, lo, hi),
+                                    keep_keys(a[2], kb + 2 * c + 8, lo, hi),
+                                    keep_keys(a[3], kb + 2 * c + 8, lo, hi)};
+            pv(am);
+          }
+          if (hi == nb) fold();
+          lo = hi;
+        }
       }
     }
   }
+  if constexpr (ACC_BF16) fold();  // the last chunk's partial sum
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -341,8 +432,14 @@ __global__ void __launch_bounds__(NT_BF16, 3) attn_fwd_bf16_sync(Params p) {
     for (int j = 0; j < 2; ++j) {
       const int d = dn * 8 + 2 * c + j;
       if (d < p.dh) {
-        if (qp0 < p.Sq) og[qp0 * p.o_ss + d] = __float2bfloat16(acc[dn][j] * inv0);
-        if (qp1 < p.Sq) og[qp1 * p.o_ss + d] = __float2bfloat16(acc[dn][2 + j] * inv1);
+        float o0 = acc[dn][j], o1 = acc[dn][2 + j];
+        if constexpr (ACC_BF16) {
+          const float2 a0 = __bfloat1622float2(ab[dn][0]), a1 = __bfloat1622float2(ab[dn][1]);
+          o0 = j ? a0.y : a0.x;
+          o1 = j ? a1.y : a1.x;
+        }
+        if (qp0 < p.Sq) og[qp0 * p.o_ss + d] = __float2bfloat16(o0 * inv0);
+        if (qp1 < p.Sq) og[qp1 * p.o_ss + d] = __float2bfloat16(o1 * inv1);
       }
     }
   }
@@ -816,6 +913,7 @@ constexpr int LDP = BN + 1;
 constexpr int NT_F32 = 256;
 constexpr size_t SMEM_F32 = (size_t(BM + 2 * BN) * LDF + size_t(BM) * LDP) * sizeof(float);
 
+template <bool ACC_BF16>
 __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -836,14 +934,36 @@ __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
   __syncthreads();
   for (int i = threadIdx.x; i < BM * DP; i += NT_F32) Qs[(i / DP) * LDF + i % DP] *= p.scale;
 
+  // ACC_BF16: acc holds the current chunk's partial sum, accb the bf16
+  // accumulator relative to the row maxima mb of the last fold
   float acc[4][DP / 16], m[4], l[4];
+  [[maybe_unused]] float accb[4][ACC_BF16 ? DP / 16 : 1], mb[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
+    mb[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < DP / 16; ++e) acc[i][e] = 0.f;
+    if constexpr (ACC_BF16) {
+#pragma unroll
+      for (int e = 0; e < DP / 16; ++e) accb[i][e] = 0.f;
+    }
   }
+  [[maybe_unused]] auto fold = [&]() {
+    if constexpr (ACC_BF16) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float f = fold_scale<false>(mb[i], m[i]);
+#pragma unroll
+        for (int e = 0; e < DP / 16; ++e) {
+          accb[i][e] = fold_bf16(accb[i][e], f, acc[i][e]);
+          acc[i][e] = 0.f;
+        }
+        mb[i] = m[i];
+      }
+    }
+  };
 
   int t0, t1;
   kv_tiles<BM, BN>(p, q0, t0, t1);
@@ -889,7 +1009,7 @@ __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float pv = expf(s[i][j] - ms);  // masked: exp(-inf) = 0
-        Ps[(4 * rg + i) * LDP + cg + 16 * j] = pv;
+        Ps[(4 * rg + i) * LDP + cg + 16 * j] = ACC_BF16 ? bf16_round(pv) : pv;
         rs += pv;
       }
 #pragma unroll
@@ -901,18 +1021,28 @@ __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
     }
     __syncthreads();  // P complete
 
+    // ACC_BF16: the next chunk boundary after this tile's first key
+    [[maybe_unused]] int nb = ACC_BF16 ? (k0 / p.accum_chunk + 1) * p.accum_chunk : 0;
     for (int kk = 0; kk < BN; ++kk) {
       float pv[4], vv[DP / 16];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * rg + i) * LDP + kk];
 #pragma unroll
-      for (int e = 0; e < DP / 16; ++e) vv[e] = Vs[kk * LDF + cg + 16 * e];
+      for (int e = 0; e < DP / 16; ++e)
+        vv[e] = ACC_BF16 ? bf16_round(Vs[kk * LDF + cg + 16 * e]) : Vs[kk * LDF + cg + 16 * e];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < DP / 16; ++e) acc[i][e] = fmaf(pv[i], vv[e], acc[i][e]);
+      if constexpr (ACC_BF16) {
+        if (k0 + kk + 1 == nb) {  // a chunk ends after this key
+          fold();
+          nb += p.accum_chunk;
+        }
+      }
     }
   }
+  if constexpr (ACC_BF16) fold();  // the last chunk's partial sum
 
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -923,7 +1053,11 @@ __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
 #pragma unroll
       for (int e = 0; e < DP / 16; ++e) {
         const int d = cg + 16 * e;
-        if (d < p.dh) og[qp * p.o_ss + d] = acc[i][e] * inv;
+        if constexpr (ACC_BF16) {
+          if (d < p.dh) og[qp * p.o_ss + d] = accb[i][e] * inv;
+        } else {
+          if (d < p.dh) og[qp * p.o_ss + d] = acc[i][e] * inv;
+        }
       }
     }
   }
@@ -985,6 +1119,7 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, void* o
                         &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb, &p.o_ss, &p.o_sh};
   for (int i = 0; i < 12; ++i) *dst[i] = strides[i];
   p.scale = scale;
+  p.accum_chunk = 0;
   return true;
 }
 
@@ -1034,6 +1169,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int dh, in
 }
 
 unsigned long long smem_set_sync = 0, smem_set_f32 = 0, smem_set_tma = 0;
+unsigned long long smem_set_sync_acc = 0, smem_set_f32_acc = 0;
 
 }  // namespace
 
@@ -1041,17 +1177,21 @@ unsigned long long smem_set_sync = 0, smem_set_f32 = 0, smem_set_tma = 0;
 // (bf16 if is_bf16, else fp32) with unit stride on dh, on CUDA device
 // `device`.  strides holds the (batch, seq, head) element strides of q, k, v,
 // o in that order.  window < 0 means no window.  bf16 runs the mma.sync
-// kernel, for inputs TMA cannot describe.  Launches on `stream` and returns
-// cudaGetLastError().
+// kernel, for inputs TMA cannot describe and for bf16 accumulation.
+// accum_chunk > 0 accumulates P V in bf16 over KV chunks of that many rows
+// (the ACC_BF16 instances), 0 in fp32; < 0 is refused.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int is_bf16, int B, int Sq, int Skv, int H, int KV,
                                          int dh, const long long* strides, int causal,
-                                         int window, float scale, int device, void* stream) {
+                                         int window, float scale, int accum_chunk, int device,
+                                         void* stream) {
   DeviceGuard guard;
   if (const cudaError_t err = guard.set(device)) return int(err);
   Params p;
-  if (!fill_params(p, q, k, v, o, B, Sq, Skv, H, KV, dh, strides, scale))
+  if (accum_chunk < 0 || !fill_params(p, q, k, v, o, B, Sq, Skv, H, KV, dh, strides, scale))
     return int(cudaErrorInvalidValue);
+  p.accum_chunk = accum_chunk;
   const long long vec_elems = is_bf16 ? 8 : 4;
   bool vec = aligned16(q) && aligned16(k) && aligned16(v) && dh % vec_elems == 0;
   for (int i = 0; i < 9; ++i) vec = vec && strides[i] % vec_elems == 0;
@@ -1062,14 +1202,22 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   const dim3 grid((Sq + BM - 1) / BM, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16) {
-    err = smem_limit_once(attn_fwd_bf16_sync, SMEM_BF16, smem_set_sync);
+  if (is_bf16 && accum_chunk > 0) {
+    err = smem_limit_once(attn_fwd_bf16_sync<true>, SMEM_BF16, smem_set_sync_acc);
     if (err != cudaSuccess) return int(err);
-    attn_fwd_bf16_sync<<<grid, NT_BF16, SMEM_BF16, st>>>(p);
+    attn_fwd_bf16_sync<true><<<grid, NT_BF16, SMEM_BF16, st>>>(p);
+  } else if (is_bf16) {
+    err = smem_limit_once(attn_fwd_bf16_sync<false>, SMEM_BF16, smem_set_sync);
+    if (err != cudaSuccess) return int(err);
+    attn_fwd_bf16_sync<false><<<grid, NT_BF16, SMEM_BF16, st>>>(p);
+  } else if (accum_chunk > 0) {
+    err = smem_limit_once(attn_fwd_f32<true>, SMEM_F32, smem_set_f32_acc);
+    if (err != cudaSuccess) return int(err);
+    attn_fwd_f32<true><<<grid, NT_F32, SMEM_F32, st>>>(p);
   } else {
-    err = smem_limit_once(attn_fwd_f32, SMEM_F32, smem_set_f32);
+    err = smem_limit_once(attn_fwd_f32<false>, SMEM_F32, smem_set_f32);
     if (err != cudaSuccess) return int(err);
-    attn_fwd_f32<<<grid, NT_F32, SMEM_F32, st>>>(p);
+    attn_fwd_f32<false><<<grid, NT_F32, SMEM_F32, st>>>(p);
   }
   return int(cudaGetLastError());
 }

@@ -7,6 +7,13 @@ padding pass runs in device memory first.  bf16 inputs that TMA can
 describe (``tma_path``) go to the TMA / wgmma kernel, other bf16 inputs to
 the mma.sync kernel, fp32 inputs to the CUDA-core kernel.  ``launches``
 counts every launch; each path also counts its own.
+
+``accum_chunk`` > 0 asks for the reference's ``attn_accum_bf16`` mode
+(``repro/models/layers.py::chunked_attention`` with ``accum_bf16``): P.V
+and the output accumulator in bf16 over KV chunks of ``accum_chunk`` rows,
+m and l in fp32.  The mma.sync and fp32 kernels compute it; the TMA kernel
+accumulates in fp32 only, so such calls go to the mma.sync kernel whatever
+``tma_path`` says.  It is a numerics mode, not a speed path.
 """
 
 from __future__ import annotations
@@ -31,12 +38,43 @@ sync_launches = 0
 #: ... the fp32 kernel's
 f32_launches = 0
 
+#: the ``accum_chunk`` mode's cases on the card (chip_smoke.py's kernel check
+#: and tests/test_torch_gpu.py): B, Sq, Skv, H, KV, dh, causal, window and
+#: the KV chunk; dh 64 / 120 / 128, causal, windowed and non-causal, chunks
+#: of 256 and 1024 rows, chunks of 100 rows, whose ends fall inside the
+#: kernels' 64-key tiles and 16-key k-steps, and the served h2o-danube-3-4b
+#: 4 x 512 prefill's shape with its chunk, min(attn_chunk, Skv) = Skv: one
+#: chunk, no fold inside the loop and one at the end, so the accumulator is
+#: rounded to bf16 once before the output is
+ACC_CASES = [((2, 512, 512, 8, 2, 64, True, None), 256),
+             ((1, 1024, 1024, 8, 2, 120, True, 300), 256),
+             ((2, 700, 700, 4, 4, 64, False, None), 256),
+             ((1, 2048, 2048, 8, 2, 128, True, None), 1024),
+             ((1, 1500, 1500, 16, 16, 64, False, None), 1024),
+             ((1, 1300, 1300, 8, 2, 120, True, 1100), 1024),
+             ((2, 333, 333, 4, 2, 64, True, None), 100),
+             ((4, 512, 512, 32, 8, 120, True, 4096), 512)]
+#: against the plain chunked form with accum_bf16 (ref.chunked_attention):
+#: |got - plain| <= ACC_TOL * (|plain| + the row's mean |plain|).  Not
+#: bit-equal: the kernel's row max moves per 64-key tile, not per chunk, so
+#: it rounds P to bf16 at other scales.  A CPU mirror of the kernel's
+#: algebra read at most 0.024 of that scale on such cases.
+ACC_TOL = 2.0 ** -4
+#: ... and against fp32 truth (ref.attention_ref on the same inputs): the
+#: mean error over the row's mean |truth| is the plain form's within this
+#: factor either way.  On an H100 the kernel read 0.984-0.997x on these
+#: cases; the fp32-accumulating kernel on the same inputs 0.60-0.82x on
+#: bf16 inputs (0.82x with one chunk) and below 0.001x on fp32 ones, and
+#: must land outside it.
+ACC_MEAN_RATIO = 1.1
+
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p]
 #: C entry point -> its argument types (the mma.sync / fp32 one takes is_bf16)
 _SIGNATURES = {"repro_flash_attention_fwd_tma": _ARGS,
-               "repro_flash_attention_fwd": _ARGS[:4] + [ctypes.c_int] + _ARGS[4:]}
+               "repro_flash_attention_fwd": (_ARGS[:4] + [ctypes.c_int] + _ARGS[4:-2]
+                                             + [ctypes.c_int] + _ARGS[-2:])}
 _bound: dict = {}
 _variant = None  # a library built from another version of SOURCE (load_variant)
 
@@ -84,9 +122,11 @@ def _tma_ok(dtype, shapes, strides, ptrs) -> bool:
     return True
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None):
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None, accum_chunk: int = 0):
     """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) CUDA tensors of one dtype
-    (float32 or bfloat16) with unit stride on dh -> (B, Sq, H, dh)."""
+    (float32 or bfloat16) with unit stride on dh -> (B, Sq, H, dh).
+    ``accum_chunk`` > 0: P.V and the accumulator in bf16 over KV chunks of
+    that many rows (the mma.sync or fp32 kernel); 0: fp32 accumulation."""
     global launches, tma_launches, sync_launches, f32_launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA device")
@@ -104,6 +144,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None):
                          f"{tuple(k.shape)} (need H % KV == 0, dh <= 128)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention_fwd: head_dim must be contiguous")
+    if accum_chunk < 0:
+        raise ValueError(f"flash_attention_fwd: accum_chunk {accum_chunk} < 0")
     o = q.new_empty((B, Sq, H, dh))
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     strides = (ctypes.c_longlong * 12)(*qs[:3], *ks[:3], *vs[:3], *o.stride()[:3])
@@ -113,11 +155,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None):
     tail = (B, Sq, Skv, H, KV, dh, strides, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(dh), dev,
             torch._C._cuda_getCurrentRawStream(dev))
-    tma = _tma_ok(q.dtype, (q.shape, k.shape, v.shape), (qs, ks, vs), ptrs)
+    tma = not accum_chunk and _tma_ok(q.dtype, (q.shape, k.shape, v.shape), (qs, ks, vs), ptrs)
     if tma:
         err = _fn("repro_flash_attention_fwd_tma")(*ptrs, *tail)
     else:
-        err = _fn("repro_flash_attention_fwd")(*ptrs, int(q.dtype == torch.bfloat16), *tail)
+        err = _fn("repro_flash_attention_fwd")(*ptrs, int(q.dtype == torch.bfloat16),
+                                               *tail[:-2], int(accum_chunk), *tail[-2:])
     if err:
         path = "TMA" if tma else "mma.sync" if q.dtype == torch.bfloat16 else "fp32"
         raise RuntimeError(f"flash attention kernel launch failed ({path} path): error {err}")

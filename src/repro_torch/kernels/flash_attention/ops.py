@@ -13,8 +13,10 @@ or launch raises.
 reference, where ``cfg.attn_impl`` picks Pallas or chunked jnp, the
 device picks the path; ``cfg`` sizes the KV chunks of the plain version,
 and ``cfg.attn_accum_bf16`` takes its P.V and accumulator in bf16 as the
-reference's chunked path does.  The Hopper kernel accumulates in fp32
-only, so on CUDA ``attn_accum_bf16`` raises rather than run fp32.
+reference's chunked path does, on every device: on CUDA the kernel
+computes that mode itself over KV chunks of the same ``chunk`` rows
+(``kernel.flash_attention_fwd``'s ``accum_chunk``), on the CPU and on
+``meta`` the plain chunked form does.
 
 Both run through ``FlashAttention``, a ``torch.autograd.Function``.  Its
 forward is the dispatch above.  The reference has no backward kernel: it
@@ -42,12 +44,9 @@ CPU_CHUNK = 128
 
 
 def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
-    if accum_bf16 and q.device.type != "cpu":
-        raise NotImplementedError(
-            "flash_attention: attn_accum_bf16 has no Hopper kernel; the kernel "
-            "accumulates P.V in fp32")
     if q.device.type == "cuda":
-        return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                          accum_chunk=chunk if accum_bf16 else 0)
     if q.device.type in ("cpu", "meta"):
         return chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                                  accum_bf16=accum_bf16)

@@ -80,7 +80,7 @@ class ArchConfig:
     # implementation toggles
     attn_impl: str = "chunked"  # full | chunked | pallas
     attn_chunk: int = 1024      # KV block for chunked/online-softmax attn
-    remat: str = "block"        # none | block
+    remat: str = "block"        # none | block | dots
     # dry-run costing: fully unroll inner lax.scans (attention/ssm/xent
     # chunks) so XLA cost_analysis counts all iterations; unroll_blocks
     # additionally unrolls the layer-block scan (used by the 1/2-block

@@ -12,7 +12,12 @@ and the reference's ``lax.scan`` over blocks is a Python loop over that
 axis.
 ``remat="block"`` (the reference's ``jax.checkpoint`` in ``_scan_blocks``)
 is ``torch.utils.checkpoint`` around each block while autograd records;
-the backward then runs each block's forward once more.  The decode caches
+the backward then runs each block's forward once more.  ``remat="dots"``
+(the reference's ``dots_with_no_batch_dims_saveable`` policy over the
+decoder blocks) is the same checkpoint with a selective policy
+(``DOTS_SAVEABLE``): the outputs of matrix products with no batch
+dimension are saved and everything else is recomputed; the encoder gets
+no remat under it, as in the reference.  The decode caches
 keep the reference layouts, ``(n_blocks, n_attn, B, S_max, KV, dh)`` for
 attention and ``(n_blocks, n_mamba or n_rwkv, B, ...)`` for the recurrent
 layers, and are updated in place.
@@ -21,11 +26,13 @@ layers, and are updated in place.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.ssm_scan import ops as ssm_ops
 from ..sharding.rules import logical_constraint
@@ -468,10 +475,38 @@ def _embed(params, tokens, cfg: ArchConfig, batch=None):
     return logical_constraint(x, "batch", None, None)
 
 
-def _run_block(bp, x, cfg: ArchConfig, remat: bool, **kw):
-    """``block_apply``, under ``torch.utils.checkpoint`` when ``remat``."""
-    if remat:
+#: the ops whose outputs ``remat="dots"`` saves: a product with no batch
+#: dimension.  ``x @ W`` of a 3-D x dispatches as a view and ``aten.mm``;
+#: attention's einsums and the MoE experts' ``torch.bmm`` carry a batch
+#: dimension (``aten.bmm``) and are recomputed, as the reference's
+#: ``"ecd,edf->ecf"`` is.  The kernels are ctypes calls the dispatcher never
+#: sees: they run again in the recompute, into buffers allocated there.
+DOTS_SAVEABLE = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVEABLE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, encoder: bool = False) -> str:
+    """The remat that applies while autograd records: "block", "dots" or
+    "none"; the encoder has none under "dots"."""
+    if not torch.is_grad_enabled() or (encoder and cfg.remat == "dots"):
+        return "none"
+    return cfg.remat
+
+
+def _run_block(bp, x, cfg: ArchConfig, remat: str, **kw):
+    """``block_apply``, under ``torch.utils.checkpoint`` for ``remat``
+    "block", under it with the ``DOTS_SAVEABLE`` policy for "dots", and
+    plain for any other value, as the reference's ``_scan_blocks``."""
+    if remat == "block":
         return checkpoint(block_apply, bp, x, cfg, use_reentrant=False, **kw)
+    if remat == "dots":
+        return checkpoint(block_apply, bp, x, cfg, use_reentrant=False,
+                          context_fn=partial(create_selective_checkpoint_contexts,
+                                             _dots_policy), **kw)
     return block_apply(bp, x, cfg, **kw)
 
 
@@ -480,7 +515,7 @@ def _encode(params, audio_embeds, cfg: ArchConfig):
     through the non-causal encoder blocks (self-attention with RoPE, as the
     reference has it), then ``enc_norm``."""
     x = audio_embeds.to(_dtype(cfg.compute_dtype))
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    remat = _remat(cfg, encoder=True)
     for i in range(cfg.encdec.n_encoder_layers):
         x, _, _ = _run_block(_index(params["enc_blocks"], i), x, cfg, remat, causal=False)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
@@ -491,17 +526,12 @@ def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     over blocks (fp32), cache stacked over blocks).  An encoder-decoder
     encodes ``batch["audio_embeds"]`` first (under the profiler range
     ``encoder``)."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"final_hidden: remat={cfg.remat!r} needs a selective checkpoint "
-            "policy (the reference's dots_with_no_batch_dims_saveable), which "
-            "the port does not have; use 'block' or 'none'")
     enc_out = None
     if cfg.is_encdec:
         with record_function("encoder"):
             enc_out = _encode(params, batch["audio_embeds"], cfg)
     x = _embed(params, batch["tokens"], cfg, batch)
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    remat = _remat(cfg)
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):

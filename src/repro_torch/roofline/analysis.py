@@ -35,9 +35,11 @@ measures how much of the counted compute is "useful".
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import asdict, dataclass
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from .comm import CollectiveCounter, local_dispatch
@@ -69,6 +71,31 @@ class CostCounter(CollectiveCounter):
             if isinstance(t, torch.Tensor):
                 self.bytes += t.numel() * t.element_size()
         return out
+
+
+class ProductCounter(TorchDispatchMode):
+    """Counts the matrix products (``aten.mm``, ``aten.addmm``, ``aten.bmm``)
+    dispatched while it is active, by op name (``ops``), and apart those
+    dispatched while ``scope`` names one of ``scopes`` (``scoped``): the
+    products ``remat="dots"`` saves (``mm``, ``addmm``) and recomputes
+    (``bmm``).  The kernels are ctypes calls, never dispatched, so never
+    counted."""
+
+    PRODUCTS = ("mm", "addmm", "bmm")
+
+    def __init__(self, scopes=()):
+        super().__init__()
+        self.ops = Counter()
+        self.scope = None
+        self.scoped = {name: Counter() for name in scopes}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket.__name__
+        if name in self.PRODUCTS:
+            self.ops[name] += 1
+            if self.scope:
+                self.scoped[self.scope][name] += 1
+        return func(*args, **(kwargs or {}))
 
 
 def cost_numbers(counted: dict) -> dict:

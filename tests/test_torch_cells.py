@@ -22,6 +22,9 @@ and against the unsharded port.
   places it, on KV caches cut over S_max (2x2 and 1x4), against the int
   ``pos`` run.
 * granite-moe train steps under each pin, against the unsharded step.
+* The dense and granite-moe train steps under ``remat="dots"`` (the
+  selective checkpoint over ``DTensor``s and the ``local_map`` regions),
+  against the unsharded step under it.
 * Each family's sharded prefill on a 2x2 mesh under ``RefusedOps``, a
   dispatch mode that records the ``DTensor`` ops torch 2.11's sharding
   rules refuse (ROADMAP C15): none may reach them.  Newer torch versions
@@ -442,6 +445,7 @@ def _dense_cases(mesh, tmp):
     arch = "h2o-danube-3-4b"
     return _each({"serve": lambda: _serve_case(mesh, arch, _cfg(arch), n_dec=2, tensor_pos=True),
                   "train": lambda: _train_case(mesh, tmp), "gqa": lambda: _gqa_cases(mesh),
+                  "train_dots": lambda: _train_case(mesh, tmp, remat="dots"),
                   "constraint": lambda: _constraint_cases(mesh),
                   "ckpt": lambda: _ckpt_cases(mesh, tmp)})
 
@@ -459,6 +463,7 @@ def _moe_cases(mesh, tmp):
     train = {f"train_{pin}": (lambda pin=pin: _train_case(mesh, tmp, arch,
                                                           moe_shard_constraints=pin))
              for pin in MOE_PINS}
+    train["train_dots"] = lambda: _train_case(mesh, tmp, arch, remat="dots")
     return _each({**serve, **train})
 
 
@@ -834,3 +839,16 @@ def test_no_op_torch_2_11_refuses(refused, case):
     padding concatenate zeros rather than pad, and MoE's scatter and gather
     index local buffers."""
     assert _case(refused, case) == []
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_train_step_under_remat_dots(family, request):
+    """The train cell under ``remat="dots"`` on the 2x2 mesh: the policy
+    saves the sharded products' outputs (``DTensor``s) and recomputes the
+    rest, ``local_map`` regions included; loss, grad norm and every
+    gradient leaf equal the unsharded step's under it, as the AdamW update
+    on the same gradients does."""
+    train = _case(request.getfixturevalue(family), "train_dots")
+    assert train["loss"] <= SHARD_RTOL and train["grad_norm"] <= SHARD_RTOL
+    assert max(train["grads"].values()) <= SHARD_RTOL
+    assert train["adamw_same_grads"] <= 1e-6

@@ -14,8 +14,17 @@ is global state, and the test process keeps none.
   and a 2x2 fake mesh (tensor parallel: no product runs whole on every
   model rank).
 * The input specs of every arch id (tests/test_arch_smoke.py::test_input_specs_shapes).
+* ``remat="dots"`` on granite-moe's train cell, 2 layers, on the 2x2x2 fake
+  mesh: the counted FLOPs are block's less the blocks' forward ``mm`` /
+  ``addmm`` FLOPs (those the policy saves, counted inside ``block_apply``
+  under ``remat="none"``), within DOTS_FLOPS_TOL, and the temps (the saved
+  outputs held until the backward) at least block's.
+* ``scripts/perf_iter_torch.py`` counts a cell on its fake group and
+  appends the reference's record, its ``--set`` parsing that of
+  ``scripts/perf_iter.py``.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -111,6 +120,48 @@ FLOPS = textwrap.dedent("""
 """)
 
 
+DOTS = textwrap.dedent("""
+    import dataclasses, json
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cells import build_cell, lower_cell
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import CostCounter
+
+    class SavedProducts(CostCounter):
+        # the FLOPs of the products remat="dots" saves
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func not in tf.DOTS_SAVEABLE:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    arch = "granite-moe-1b-a400m"
+    cfg = get_config(arch).scaled_down(n_layers=2)
+    out = {}
+    with fake_group(8):
+        mesh = make_test_mesh(2, 2, pods=2, device_type="cpu")
+        cell = lambda remat: build_cell(arch, "train_4k", mesh,
+                                        cfg=dataclasses.replace(cfg, remat=remat))
+        for remat in ("block", "dots"):
+            rec = lower_cell(cell(remat), mesh)
+            out[remat] = {"flops": rec["flops"], "temp": rec["temp"]}
+        saved, block_apply = SavedProducts(), tf.block_apply
+
+        def counted(*args, **kw):
+            with saved:
+                return block_apply(*args, **kw)
+
+        tf.block_apply = counted
+        lower_cell(cell("none"), mesh)  # no remat: each block's forward runs once
+        tf.block_apply = block_apply
+    out["saved_flops"] = saved.flops
+    print(json.dumps(out))
+""")
+#: the dry run under "dots" against block's less the saved products' FLOPs
+DOTS_FLOPS_TOL = 1e-3
+
+
 def _run(script, **env):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1", **env)
     out = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
@@ -174,3 +225,67 @@ def test_input_specs_shapes(arch_id):
     # cache leaves must be well-formed meta tensors
     for leaf in d["cache"].values():
         assert leaf.device.type == "meta" and all(dim > 0 for dim in leaf.shape)
+
+
+def test_dots_counts_block_flops_less_the_saved_products():
+    """The selective checkpoint's recompute returns the saved ``mm`` outputs
+    without dispatching them, so the dry run's counter (an outer dispatch
+    mode) never sees them run twice; they stay alive from the forward to
+    the backward, so ``LiveBytes`` holds at least block's peak."""
+    rec = _run(DOTS)
+    assert rec["saved_flops"] > 0
+    drop = rec["block"]["flops"] - rec["dots"]["flops"]
+    assert abs(drop - rec["saved_flops"]) <= DOTS_FLOPS_TOL * rec["saved_flops"]
+    assert rec["dots"]["temp"] >= rec["block"]["temp"]
+
+
+def _reference_parse_override():
+    """``parse_override`` of the reference's scripts/perf_iter.py, taken from
+    its source: importing the script sets XLA_FLAGS for this process."""
+    with open(os.path.join(ROOT, "scripts", "perf_iter.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "parse_override")
+    scope = {}
+    exec(compile(ast.Module([fn], []), "perf_iter.py", "exec"), scope)
+    return scope["parse_override"]
+
+
+def test_perf_iter_parse_override_as_reference():
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import perf_iter_torch
+    finally:
+        sys.path.remove(os.path.join(ROOT, "scripts"))
+    want = _reference_parse_override()
+    for s in ["attn_chunk=2048", "remat=dots", "attn_accum_bf16=true", "unroll_blocks=false",
+              "ssm.chunk=256", "rope_theta=1e6", "x=-3", "a=b=c", "flag=True", "tag="]:
+        assert perf_iter_torch.parse_override(s) == want(s), s
+    cfg = perf_iter_torch.apply_overrides(get_config("rwkv6-7b"),
+                                          ["remat=dots", "ssm.chunk=64", "attn_accum_bf16=true"])
+    assert (cfg.remat, cfg.ssm.chunk, cfg.attn_accum_bf16) == ("dots", 64, True)
+
+
+def test_perf_iter_torch_appends_a_record(tmp_path):
+    """One run of the script on its 256-rank fake group, from another
+    directory: the roofline terms against the H100 and the reference's
+    record fields, appended to results/torch/perf_iters.jsonl there."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)  # the script finds src/ itself
+    for tag in ("a", "b"):
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "perf_iter_torch.py"),
+             "--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--set", "remat=dots",
+             "--set", "attn_accum_bf16=true", "--tag", tag, "--full-memory"],
+            env=env, capture_output=True, text=True, timeout=600, cwd=tmp_path)
+        assert out.returncode == 0, out.stderr[-3000:]
+    with open(tmp_path / "results" / "torch" / "perf_iters.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["tag"] for r in recs] == ["a", "b"]
+    rec = recs[0]
+    assert rec["overrides"] == ["remat=dots", "attn_accum_bf16=true"]
+    assert rec["mesh"] == "16x16" and rec["n_devices"] == 256 and rec["hw"] == "h100-sxm5-80gb"
+    assert rec["hlo_flops_per_dev"] > 0 and rec["coll_bytes_per_dev"] > 0
+    assert rec["bytes_per_dev_argument"] > 0 and rec["bytes_per_dev_temp"] > 0
+    assert rec["wall_seconds"] > 0 and rec["note"] == "perf_iter tag=a"
+    assert rec["t_compute"] == rec["hlo_flops_per_dev"] / 989e12

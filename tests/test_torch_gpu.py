@@ -20,6 +20,7 @@ served shapes.
 """
 
 import dataclasses
+import hashlib
 
 import pytest
 
@@ -30,7 +31,8 @@ from repro_torch.kernels.checksum import kernel as cs_kernel
 from repro_torch.kernels.checksum.ops import checksum_digests
 from repro_torch.kernels.checksum.ref import digest_of, lanesum32_torch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.flash_attention.ref import chunked_attention
+from repro_torch.kernels.flash_attention.kernel import ACC_CASES, ACC_MEAN_RATIO, ACC_TOL
+from repro_torch.kernels.flash_attention.ref import attention_ref, chunked_attention
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
@@ -67,6 +69,18 @@ FLASH_CASES = [
 ]
 #: the cases of the encoder-decoder and VLM heads, also held in fp32
 WIDE_CASES = FLASH_CASES[-2:]
+#: sha256 of the fp32-accumulating kernels' outputs on _flash_inputs (bf16
+#: cases: the mma.sync kernel at offset 1 element; fp32 cases: the fp32
+#: kernel), from the kernel source before the bf16-accumulating instances
+#: were added (golden_outputs() on a build of it; NVIDIA H100 80GB HBM3,
+#: torch 2.11.0+cu128): accum_chunk 0 must give them bit for bit
+GOLDEN = {
+    "sync_dh20": "7387a29f05da227f15a6ea7e4d6ff12277f56ad3c037447817f1ab2351b76722",
+    "sync_offset": "128823260c0b380ae5bd7b90dc8fdfe8c6a4b5281a77ee5545c788f203739fd2",
+    "sync_noncausal": "4eee2c25318eb16eaad302339caf1ad3b281696e16a337a4330e79cb6b3f8127",
+    "f32_dh128": "8dcd2b2df323972d3373158d5347c5f76b7f9828958f67f150f9106a89b80c36",
+    "f32_noncausal": "d3ec5b3e72700e2eec472f1528149cf6a786e2e03660c5abd8e8dd9d902a73bc",
+}
 
 pytestmark = pytest.mark.gpu
 
@@ -136,6 +150,72 @@ def test_flash_f32_kernel_matches_plain(cuda, case):
     assert fa_kernel.launches == before + 1 and fa_kernel.f32_launches == f32_before + 1
     want = chunked_attention(q, k, v, causal=causal, window=window, chunk=128)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case,chunk", ACC_CASES, ids=[f"a{i}" for i in range(len(ACC_CASES))])
+def test_flash_accum_bf16_matches_plain(cuda, case, chunk, dtype):
+    """``accum_chunk`` > 0 (attn_accum_bf16): one launch of the mma.sync
+    (bf16) or fp32 kernel, within ACC_TOL of the plain chunked form with
+    ``accum_bf16`` element by element, and as far from fp32 truth on the
+    mean as that form is, within ACC_MEAN_RATIO, where the fp32-accumulating
+    kernel is not."""
+    *_, causal, window = case
+    q, k, v = (t.to(getattr(torch, dtype)) for t in _flash_inputs(case, cuda))
+    counts = (fa_kernel.launches, fa_kernel.tma_launches, fa_kernel.sync_launches,
+              fa_kernel.f32_launches)
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                        accum_chunk=chunk).float()
+    torch.cuda.synchronize()
+    took = tuple(a - b for a, b in zip((fa_kernel.launches, fa_kernel.tma_launches,
+                                        fa_kernel.sync_launches, fa_kernel.f32_launches),
+                                       counts))
+    assert took == ((1, 0, 1, 0) if dtype == "bfloat16" else (1, 0, 0, 1))
+    plain = chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                              accum_bf16=True).float()
+    truth = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    f32_acc = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window).float()
+    limit = ACC_TOL * (plain.abs() + plain.abs().mean(dim=-1, keepdim=True))
+    assert bool(((got - plain).abs() <= limit).all())
+    scale = truth.abs().mean(dim=-1, keepdim=True)
+    mean_err = lambda o: ((o - truth).abs() / scale).mean().item()
+    band = lambda r: 1 / ACC_MEAN_RATIO <= r <= ACC_MEAN_RATIO
+    assert band(mean_err(got) / mean_err(plain))
+    assert not band(mean_err(f32_acc) / mean_err(plain))
+
+
+def _digest(t):
+    bits = t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+
+
+#: GOLDEN's cases: (name, case, dtype, offset); offset 1 takes bf16 inputs
+#: to the mma.sync kernel
+GOLDEN_CASES = [("sync_dh20", (2, 200, 200, 4, 2, 20, True, None), "bfloat16", 0),
+                ("sync_offset", (1, 300, 300, 32, 8, 120, True, 128), "bfloat16", 1),
+                ("sync_noncausal", (2, 130, 333, 4, 1, 64, False, 100), "bfloat16", 1),
+                ("f32_dh128", (2, 300, 300, 32, 8, 128, True, 128), "float32", 0),
+                ("f32_noncausal", (2, 333, 333, 16, 16, 64, False, None), "float32", 0)]
+
+
+def golden_outputs():
+    """{name: sha256 of the kernel's output} on GOLDEN_CASES, accum_chunk 0."""
+    out = {}
+    for name, case, dtype, offset in GOLDEN_CASES:
+        *_, causal, window = case
+        q, k, v = (t.to(getattr(torch, dtype)) for t in _flash_inputs(case, "cuda", offset))
+        out[name] = _digest(fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                                          window=window))
+    torch.cuda.synchronize()
+    return out
+
+
+def test_flash_accum_chunk_zero_is_the_fp32_accumulating_kernel(cuda):
+    """The mma.sync and fp32 kernels' fp32-accumulating instances (accum_chunk
+    0, every path the models take without attn_accum_bf16) give the outputs
+    of the kernel source before the bf16-accumulating instances, bit for
+    bit (GOLDEN)."""
+    assert golden_outputs() == GOLDEN
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])

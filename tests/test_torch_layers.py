@@ -156,14 +156,38 @@ def test_attn_accum_bf16_reaches_model_and_backward():
     np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jgrad), rtol=2**-6, atol=2**-6)
 
 
-def test_attn_accum_bf16_raises_off_the_cpu():
-    """The Hopper kernel accumulates in fp32: off the CPU, ``attn_accum_bf16``
-    raises before any kernel runs rather than compute fp32."""
+def test_attn_accum_bf16_on_meta():
+    """The dry run counts ``attn_accum_bf16`` cells: on ``meta`` the
+    dispatcher runs the plain chunked form with bf16 accumulation, whose
+    output has q's shape and dtype, and launches no kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention_auto
     _, tcfg = _cfgs(attn_accum_bf16=True)
-    q, k, v = (torch.empty((1, 8, n, 16), device="meta") for n in (4, 2, 2))
-    with pytest.raises(NotImplementedError, match="attn_accum_bf16"):
-        flash_attention_auto(q, k, v, causal=True, window=None, cfg=tcfg)
+    q, k, v = (torch.empty((2, 96, n, 16), device="meta") for n in (4, 2, 2))
+    before = fa_kernel.launches
+    out = flash_attention_auto(q, k, v, causal=True, window=None, cfg=tcfg)
+    want = tl.chunked_attention(q, k, v, causal=True, chunk=min(tcfg.attn_chunk, 96),
+                             accum_bf16=True)
+    assert out.device.type == "meta" and out.shape == want.shape == q.shape
+    assert out.dtype == want.dtype == q.dtype
+    assert fa_kernel.launches == before
+
+
+@pytest.mark.parametrize("accum", [False, True])
+def test_attn_accum_bf16_sends_its_chunk_to_the_kernel(monkeypatch, accum):
+    """On CUDA the dispatcher hands the kernel ``accum_chunk``: the model's
+    KV chunk, ``min(attn_chunk, Skv)``, under ``attn_accum_bf16`` (the
+    kernel then accumulates in bf16 over chunks of that size), else 0."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops
+    calls = []
+    monkeypatch.setattr(fa_kernel, "flash_attention_fwd",
+                        lambda q, k, v, **kw: calls.append(kw) or "launched")
+    q = SimpleNamespace(device=torch.device("cuda", 0))
+    got = ops._dispatch(q, None, None, causal=True, window=7, chunk=48, accum_bf16=accum)
+    assert got == "launched"
+    assert calls == [{"causal": True, "window": 7, "accum_chunk": 48 if accum else 0}]
 
 
 @pytest.mark.parametrize("impl", ["chunked", "full"])
@@ -180,20 +204,6 @@ def test_attn_shard_constraints_match_jax(impl):
     _close(out, jout, rtol=1e-4, atol=1e-4)
     _close(k, jk, rtol=1e-4, atol=1e-4)
     _close(v, jv, rtol=1e-4, atol=1e-4)
-
-
-def test_remat_dots_raises():
-    """``remat="dots"`` is the reference's selective checkpoint policy; the
-    port has only whole-block remat, so it raises rather than run without
-    any remat."""
-    from repro_torch.models import transformer as ttf
-    from repro_torch.models.registry import build
-    _, tcfg = _cfgs(remat="dots")
-    api = build(dataclasses.replace(tcfg, remat="block"), "cpu")
-    params = api.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="selective"):
-        ttf.final_hidden(params, batch, tcfg)
 
 
 def test_cross_attention_apply():

@@ -1,0 +1,12 @@
+"""Percent of the bf16 peak: the model FLOPs of the window's work (portbench/counts.py) over the window's seconds."""
+
+from portbench import readers
+
+LAYER = "model step (models/transformer.py, layers.py, moe.py)"
+UNIT = "%"
+MOVES = "train_tok_s"
+SOURCE = "host_clock"
+
+
+def read(bench, trace):
+    return readers.mfu(bench)

@@ -1112,7 +1112,7 @@ def profile_device(torch, fn, spans=(), complete=None):
     """torch.profiler over one call of ``fn``: ({kernel name: device ms},
     kernel launches, {span: device ms}, {span: device ms as key_averages
     books it}, {span: kernel ms inside it}) for the record_function ranges
-    named in ``spans``, which are kept out of the kernels.  A span's device
+    named in ``spans``; every range is kept out of the kernels.  A span's device
     ms is its extent on the device's timeline, idle gaps included; the
     kernel ms inside it sums the kernels that start within that extent
     (one stream), its busy time.  The last two are the device's busy ms,
@@ -1138,7 +1138,7 @@ def profile_device(torch, fn, spans=(), complete=None):
                 if ev.name in span_ms:
                     span_ms[ev.name] += ms
                     extents[ev.name].append((ev.time_range.start, ev.time_range.end))
-                else:
+                elif not ev.is_user_annotation:
                     kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
                     counts[ev.name] = counts.get(ev.name, 0) + 1
                     starts.append((ev.time_range.start, ms))

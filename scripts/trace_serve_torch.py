@@ -23,16 +23,13 @@ from collections import defaultdict
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
-#: the model's record_function ranges: the profiler books them on the device
-#: timeline too, and they are spans, not kernels
-RANGES = {"encoder", "cross_attention", "moe/dispatch", "moe/combine"}
-
-
 def device_kernels(prof, torch):
-    """({kernel name: total device microseconds}, kernel count) of a profile."""
+    """({kernel name: total device microseconds}, kernel count) of a profile.
+    The program's ranges (``record_function``), which the profiler books on
+    the device timeline too, are spans, not kernels: they are left out."""
     out, n = defaultdict(float), 0
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.name not in RANGES:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             out[ev.name] += ev.time_range.elapsed_us()
             n += 1
     return out, n

@@ -36,6 +36,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from . import kernel
+from ...obs.ranges import span
 from ...sharding.rules import local_heads
 from .ref import chunked_attention
 
@@ -66,7 +67,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        with torch.profiler.record_function("flash_attention/plain_backward"):
+        with span("flash_attention/plain_backward"):
             with torch.enable_grad():
                 q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
                 o = chunked_attention(q, k, v, **ctx.attn)

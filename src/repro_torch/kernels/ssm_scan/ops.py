@@ -50,6 +50,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from . import kernel
+from ...obs.ranges import span
 from ...models.ssm import _pad_time
 from ...sharding.rules import layout, lift, shard_dims
 from .ref import ssm_scan_chunked
@@ -95,7 +96,7 @@ class SSMScan(torch.autograd.Function):
         inputs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wrt = [t for t in inputs if t is not None and t.requires_grad]
-        with torch.profiler.record_function("ssm_scan/plain_backward"):
+        with span("ssm_scan/plain_backward"):
             with torch.enable_grad():
                 outs = _plain(*inputs, *ctx.chunks)
             # training reads y alone: the final state's gradient is None

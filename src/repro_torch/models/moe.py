@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
-from torch.profiler import record_function
 
+from ..obs.ranges import span
 from ..sharding.rules import layout, lift, logical_constraint, mesh_coord, shard_dims
 from .common import ArchConfig
 from .layers import _normal, reduce_partial
@@ -201,14 +201,15 @@ def _local_combine(lay, out_buf, expert, slot, weight, K: int):
 def moe_apply(p, x, cfg: ArchConfig):
     """x: (B, S, D) -> (y: (B, S, D), {"moe_aux": load-balance loss,
     "moe_drop_frac": share of (token, slot) pairs dropped}).  Routing and
-    the scatter run under the profiler range ``moe/dispatch``, the gather
-    and the weighted sum under ``moe/combine``."""
+    the scatter run under the profiler range ``moe/dispatch``, the expert
+    products under ``moe/experts``, the gather and the weighted sum under
+    ``moe/combine``."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
     C = capacity(T, cfg)
-    with record_function("moe/dispatch"):
+    with span("moe/dispatch"):
         xt = x.reshape(T, D)
 
         logits = xt.float() @ p["router"]["w"].float()
@@ -239,12 +240,13 @@ def moe_apply(p, x, cfg: ArchConfig):
 
     # capacity slots cut over ranks (train and prefill): each rank runs its own;
     # else (a decode step's few slots) DTensor cuts the products' inner dims
-    out_buf = (_local_experts(lay, buf, p) if lay and Shard(1) in buf.placements
-               else _experts(buf, p))
+    with span("moe/experts"):
+        out_buf = (_local_experts(lay, buf, p) if lay and Shard(1) in buf.placements
+                   else _experts(buf, p))
     if pin:
         out_buf = logical_constraint(out_buf, *pin)
 
-    with record_function("moe/combine"):
+    with span("moe/combine"):
         # gather back + weighted combine over the K slots
         weight = (keep[:, None] * gate.reshape(T * K)[:, None]).to(x.dtype)
         if lay:

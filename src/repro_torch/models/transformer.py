@@ -30,11 +30,12 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.ssm_scan import ops as ssm_ops
+from ..obs.ranges import (backward_span, in_backward, recompute_span, residual_span, sliced,
+                          span)
 from ..sharding.rules import logical_constraint
 from .common import ArchConfig
 from .convert import tree_map
@@ -334,47 +335,64 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross_attention=Fal
     return {"layers": layers}
 
 
+def _mixer_apply(layer, mixer: str, x, cfg: ArchConfig, causal: bool):
+    """``norm1`` and the layer's mixer: (out, the states it leaves for the
+    cache)."""
+    h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
+    if mixer == "attn":
+        out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
+        return out, {"attn_k": k, "attn_v": v}
+    if mixer == "mamba":
+        out, (s_ssm, s_conv) = mamba_apply(layer["mamba"], h, cfg)
+        return out, {"ssm": s_ssm, "conv": s_conv}
+    out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
+    return out, {"ssm": s_ssm, "shift_t": last}
+
+
+def _ffn_apply(layer, ffn: str, x, cfg: ArchConfig, aux):
+    """``norm2`` and the layer's ffn: (out, ``aux`` plus the MoE layer's
+    load-balance loss, the states it leaves for the cache)."""
+    h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
+    if ffn == "dense":
+        return mlp_apply(layer["mlp"], h, cfg), aux, {}
+    if ffn == "moe":
+        out, moe_aux = moe_apply(layer["moe"], h, cfg)
+        return out, aux + moe_aux["moe_aux"], {}
+    out, last = cmix_apply(layer["cmix"], h, cfg)
+    return out, aux, {"shift_c": last}
+
+
 def block_apply(bp, x, cfg: ArchConfig, *, causal=True, enc_out=None, collect_cache=False):
     """Full-sequence pass through one block.  Returns (x, cache, aux): the
     cache holds only the kinds this block has, aux is the sum of its MoE
     layers' load-balance losses (fp32, 0 without MoE).  With ``enc_out``
     (B, S_enc, d), each layer cross-attends to it between its mixer and its
     ffn (under the profiler range ``cross_attention``), and the cache gains
-    that branch's ``cross_k`` / ``cross_v``."""
+    that branch's ``cross_k`` / ``cross_v``.  Each layer's mixer and ffn,
+    from their norm to their residual add, run under the profiler ranges
+    ``layer/mixer`` and ``layer/ffn`` (``obs/ranges.py::residual_span``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {"attn_k": [], "attn_v": [], "ssm": [], "conv": [], "shift_t": [],
              "shift_c": [], "cross_k": [], "cross_v": []}
     for layer, (mixer, ffn) in zip(bp["layers"], _layer_kinds(cfg)):
-        h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-        if mixer == "attn":
-            out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
-            kept = {"attn_k": k, "attn_v": v}
-        elif mixer == "mamba":
-            out, (s_ssm, s_conv) = mamba_apply(layer["mamba"], h, cfg)
-            kept = {"ssm": s_ssm, "conv": s_conv}
-        else:
-            out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
-            kept = {"ssm": s_ssm, "shift_t": last}
-        x = x + out
+        x, kept = residual_span(
+            "layer/mixer", partial(_mixer_apply, layer, mixer, cfg=cfg, causal=causal), x)
         if enc_out is not None:
-            with record_function("cross_attention"):
+            with span("cross_attention"):
                 h = rmsnorm(layer["norm_x"], x, cfg.norm_eps)
                 out, (kept["cross_k"], kept["cross_v"]) = attention_apply(
                     layer["xattn"], h, cfg, causal=False, x_kv=enc_out)
                 x = x + out
-        h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        if ffn == "dense":
-            out = mlp_apply(layer["mlp"], h, cfg)
-        elif ffn == "moe":
-            out, moe_aux = moe_apply(layer["moe"], h, cfg)
-            aux = aux + moe_aux["moe_aux"]
-        else:
-            out, kept["shift_c"] = cmix_apply(layer["cmix"], h, cfg)
-        x = logical_constraint(x + out, "batch", None, None)
+        x, aux, kept_ffn = residual_span(
+            "layer/ffn", partial(_ffn_apply, layer, ffn, cfg=cfg, aux=aux), x)
+        x = logical_constraint(x, "batch", None, None)
         if collect_cache:
-            for key, t in kept.items():
+            for key, t in {**kept, **kept_ffn}.items():
                 cache[key].append(t)
-    return x, {k: torch.stack(v) for k, v in cache.items() if v}, aux
+    if not collect_cache:
+        return x, {}, aux
+    with span("model/cache"):
+        return x, {k: torch.stack(v) for k, v in cache.items() if v}, aux
 
 
 def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
@@ -463,16 +481,20 @@ def init_params(gen: torch.Generator, cfg: ArchConfig):
 def _embed(params, tokens, cfg: ArchConfig, batch=None):
     """Token embeddings in ``cfg.compute_dtype``; for a VLM with
     ``batch["image_embeds"]`` (B, n_image, patch_dim), the first n_image
-    positions are the projected image embeddings instead."""
-    x = embed_lookup(params["embed"]["table"], tokens).to(_dtype(cfg.compute_dtype))
-    if cfg.vlm is not None and batch is not None and "image_embeds" in batch:
-        img = linear(params["vision_proj"], batch["image_embeds"].to(x.dtype))
-        n_img, S = img.shape[1], x.shape[1]
-        if S < n_img:
-            raise ValueError(f"_embed: a prompt of {S} tokens is shorter than its "
-                             f"{n_img} image positions")
-        x = torch.cat([img, x[:, n_img:]], dim=1)
-    return logical_constraint(x, "batch", None, None)
+    positions are the projected image embeddings instead.  Under the
+    profiler range ``model/embed``, from the table to the embeddings."""
+    def embed(table):
+        x = embed_lookup(table, tokens).to(_dtype(cfg.compute_dtype))
+        if cfg.vlm is not None and batch is not None and "image_embeds" in batch:
+            img = linear(params["vision_proj"], batch["image_embeds"].to(x.dtype))
+            n_img, S = img.shape[1], x.shape[1]
+            if S < n_img:
+                raise ValueError(f"_embed: a prompt of {S} tokens is shorter than its "
+                                 f"{n_img} image positions")
+            x = torch.cat([img, x[:, n_img:]], dim=1)
+        return logical_constraint(x, "batch", None, None)
+
+    return backward_span("model/embed", embed, params["embed"]["table"])
 
 
 #: the ops whose outputs ``remat="dots"`` saves: a product with no batch
@@ -497,14 +519,24 @@ def _remat(cfg: ArchConfig, encoder: bool = False) -> str:
     return cfg.remat
 
 
+def _checkpointed_block(bp, x, cfg: ArchConfig, **kw):
+    """``block_apply`` as a checkpoint runs it: its second run, the
+    recompute inside the backward, under the profiler range
+    ``block/recompute``."""
+    if not in_backward():
+        return block_apply(bp, x, cfg, **kw)
+    with recompute_span("block/recompute"):
+        return block_apply(bp, x, cfg, **kw)
+
+
 def _run_block(bp, x, cfg: ArchConfig, remat: str, **kw):
     """``block_apply``, under ``torch.utils.checkpoint`` for ``remat``
     "block", under it with the ``DOTS_SAVEABLE`` policy for "dots", and
     plain for any other value, as the reference's ``_scan_blocks``."""
     if remat == "block":
-        return checkpoint(block_apply, bp, x, cfg, use_reentrant=False, **kw)
+        return checkpoint(_checkpointed_block, bp, x, cfg, use_reentrant=False, **kw)
     if remat == "dots":
-        return checkpoint(block_apply, bp, x, cfg, use_reentrant=False,
+        return checkpoint(_checkpointed_block, bp, x, cfg, use_reentrant=False,
                           context_fn=partial(create_selective_checkpoint_contexts,
                                              _dots_policy), **kw)
     return block_apply(bp, x, cfg, **kw)
@@ -513,11 +545,14 @@ def _run_block(bp, x, cfg: ArchConfig, remat: str, **kw):
 def _encode(params, audio_embeds, cfg: ArchConfig):
     """The encoder: ``audio_embeds`` (B, S_enc, d) in ``cfg.compute_dtype``
     through the non-causal encoder blocks (self-attention with RoPE, as the
-    reference has it), then ``enc_norm``."""
+    reference has it), then ``enc_norm``.  The gradients of the stacked
+    block parameters' slices run under ``model/block_slices/backward``, as
+    the decoder's do."""
     x = audio_embeds.to(_dtype(cfg.compute_dtype))
     remat = _remat(cfg, encoder=True)
+    block = sliced("model/block_slices", params["enc_blocks"], _index)
     for i in range(cfg.encdec.n_encoder_layers):
-        x, _, _ = _run_block(_index(params["enc_blocks"], i), x, cfg, remat, causal=False)
+        x, _, _ = _run_block(block(i), x, cfg, remat, causal=False)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -525,35 +560,47 @@ def final_hidden(params, batch, cfg: ArchConfig, collect_cache=False):
     """Returns (normed hidden (B, S, d), the MoE load-balance loss summed
     over blocks (fp32), cache stacked over blocks).  An encoder-decoder
     encodes ``batch["audio_embeds"]`` first (under the profiler range
-    ``encoder``)."""
+    ``encoder``).  The gradients of the stacked block parameters' slices,
+    each scattered into its stack and summed over blocks, run under
+    ``model/block_slices/backward`` (``obs/ranges.py::sliced``); the final
+    norm under ``model/final_norm``, the caches' stacking under
+    ``model/cache``."""
     enc_out = None
     if cfg.is_encdec:
-        with record_function("encoder"):
+        with span("encoder"):
             enc_out = _encode(params, batch["audio_embeds"], cfg)
     x = _embed(params, batch["tokens"], cfg, batch)
     remat = _remat(cfg)
+    block = sliced("model/block_slices", params["blocks"], _index)
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
-        x, cache, aux_i = _run_block(_index(params["blocks"], i), x, cfg, remat, causal=True,
+        x, cache, aux_i = _run_block(block(i), x, cfg, remat, causal=True,
                                      enc_out=enc_out, collect_cache=collect_cache)
         aux = aux + aux_i
         caches.append(cache)
-    caches = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-              if collect_cache else {})
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caches
+    if collect_cache:
+        with span("model/cache"):
+            caches = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    else:
+        caches = {}
+    x = backward_span("model/final_norm",
+                      lambda x: rmsnorm(params["final_norm"], x, cfg.norm_eps), x)
+    return x, aux, caches
 
 
 def loss_fn(params, batch, cfg: ArchConfig, aux_weight: float = 0.01):
     """Mean next-token xent of ``batch["tokens"]`` against
     ``batch["labels"]`` (-1 ignored), plus ``aux_weight`` times the MoE
     load-balance loss (0 without MoE).  Returns (loss, {"xent", "moe_aux"})
-    as the reference does."""
+    as the reference does.  The LM head and the cross-entropy run under the
+    profiler range ``model/head_loss``."""
     x, aux, _ = final_hidden(params, batch, cfg)
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["w"].T)
-    xent = chunked_xent(table, x, batch["labels"],
-                        chunk=min(cfg.logit_chunk, x.shape[1]))
+    xent = backward_span("model/head_loss",
+                         lambda x: chunked_xent(table, x, batch["labels"],
+                                                chunk=min(cfg.logit_chunk, x.shape[1])), x)
     return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
 
 
@@ -567,15 +614,18 @@ def logits_last(params, x_last, cfg: ArchConfig):
 def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     """Builds a serving cache; returns (last-token logits, cache, pos).
 
-    ``pad_to`` sizes the attention KV cache for subsequent decode."""
+    ``pad_to`` sizes the attention KV cache for subsequent decode.  The
+    padding and the last position's logits run under the profiler range
+    ``model/head``."""
     x, _, caches = final_hidden(params, batch, cfg, collect_cache=True)
     S = batch["tokens"].shape[1]
-    if pad_to is not None and pad_to > S and "attn_k" in caches:
-        for key in ("attn_k", "attn_v"):
-            # (nb, n_attn, B, S, KV, dh): zero-pad the sequence axis
-            caches[key] = torch.cat([caches[key], _zeros_along(caches[key], -3, pad_to - S)],
-                                    dim=-3)
-    return logits_last(params, x[:, -1:, :], cfg), caches, S
+    with span("model/head"):
+        if pad_to is not None and pad_to > S and "attn_k" in caches:
+            for key in ("attn_k", "attn_v"):
+                # (nb, n_attn, B, S, KV, dh): zero-pad the sequence axis
+                caches[key] = torch.cat([caches[key],
+                                         _zeros_along(caches[key], -3, pad_to - S)], dim=-3)
+        return logits_last(params, x[:, -1:, :], cfg), caches, S
 
 
 def decode_step(params, cache, token, pos: int, cfg: ArchConfig):

@@ -17,6 +17,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.convert import flatten, unflatten
 from ..models.registry import ModelApi
+from ..obs.ranges import host_span, span
 from ..optim import OptimizerConfig, adamw_init, adamw_update
 
 
@@ -54,7 +55,7 @@ def value_and_grad(api: ModelApi, params, batch):
 def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig,
                     accum_steps: int = 1) -> Callable:
     def train_step(state, batch):
-        with torch.profiler.record_function("train_step/loss_and_grad"):
+        with span("train_step/loss_and_grad"):
             if accum_steps == 1:
                 loss, metrics, grads = value_and_grad(api, state["params"], batch)
             else:
@@ -74,7 +75,7 @@ def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig,
                                   {k: g / accum_steps for k, g in grads.items()})
                 loss = loss / accum_steps
                 metrics = {}
-        with torch.profiler.record_function("train_step/adamw"):
+        with span("train_step/adamw"):
             params, opt, om = adamw_update(state["params"], grads,
                                            state["opt"], opt_cfg)
         metrics = dict(metrics, loss=loss, **om)
@@ -84,8 +85,11 @@ def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig,
 
 
 def make_prefill_step(api: ModelApi, pad_to: int | None = None) -> Callable:
+    """(params, batch) -> (last-token logits, cache), under the host range
+    ``runtime/prefill_step`` (``obs/ranges.py::host_span``)."""
     def prefill_step(params, batch):
-        logits, cache, pos = api.prefill(params, batch, pad_to=pad_to)
+        with host_span("runtime/prefill_step"):
+            logits, cache, pos = api.prefill(params, batch, pad_to=pad_to)
         return logits, cache
 
     return prefill_step

@@ -12,8 +12,9 @@
    one element off 16-byte alignment, the fp32 path; then the
    ``attn_accum_bf16`` mode of the mma.sync and fp32 kernels on the
    kernel module's ACC_CASES, the served prefill's shape among them,
-   against the plain chunked form with ``accum_bf16`` and fp32 truth), the
-   lanesum32 checksum
+   against the plain chunked form with ``accum_bf16`` and fp32 truth; then
+   the backward kernel through ``FlashAttention`` at the training steps'
+   shapes against the plain backward), the lanesum32 checksum
    (``checksum_check``, bit-exact, a buffer above 2 GiB included) and the
    ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
    strong and scalar decay, the chunked kernel's edges (T 1 and 17, a
@@ -26,7 +27,8 @@
    ratio (where the window cuts, SDPA with the band as a mask computes the
    kernel's function, and SDPA with ``is_causal`` over every causal pair
    is timed beside it); flash's ``attn_accum_bf16`` mode and its plain form
-   at the same shapes;
+   at the same shapes; the flash backward kernel, the plain backward and
+   SDPA's backward at the training steps' shapes (``backward_times``);
 5. serves full-width h2o-danube-3-4b (24 layers, bf16, random weights from
    a seed) through ``repro_torch.launch.serve`` (``serve``): 4 requests x
    512-token prompts to 32 tokens, then 1 request x a 5120-token prompt to
@@ -115,8 +117,9 @@
    plain attention's within MOE_TRAIN_FP32_LIMIT (the kernel fed
    bf16-rounded q, k, v must land beyond it; routing decisions that differ
    printed), 2 TMA flash launches per layer and step, the warm rate and a
-   profiled step split into the flash forward, the plain attention
-   backward, MoE dispatch and combine, AdamW and the rest; then
+   profiled step split into the flash forward, the attention backward
+   (one backward kernel launch a layer and step), MoE dispatch and combine,
+   AdamW and the rest; then
    ``remat="dots"`` on the same state and batch (``train_moe_dots``): an
    fp32 loss and gradient against the block remat's within DOTS_FP32_LIMIT,
    the matrix products each backward dispatches, timed steps with 2 TMA
@@ -236,6 +239,16 @@ MAIN_CASES = [(4, 512, 512, 32, 8, 120, True, 4096),
               (4, 1500, 1500, 16, 16, 64, False, None),  # whisper's encoder at 4 requests
               (4, 2048, 2048, 32, 8, 128, True, 4096),  # llava's 4 x 2048 prefill
               (2, 2048, 2048, 16, 8, 64, True, None)]  # granite-moe's training step
+#: the backward kernel's main-path shapes: granite-moe's train_4k step (16 /
+#: 8 heads of 64, the 64-wide instance) and the dense training step's heads
+#: (h2o-danube-3-4b at TRAIN_SEQ, 32 / 8 of 120, the 128-wide one)
+BWD_MAIN_CASES = [(2, 4096, 4096, 16, 8, 64, True, None),
+                  (2, 2048, 2048, 32, 8, 120, True, 4096)]
+#: the backward kernel against the plain backward on bf16 inputs, as
+#: tests/test_torch_gpu.py: relative L2 error of each gradient, and the
+#: largest error over the largest |plain| (the kernel rounds P and dS to
+#: bf16 as operands, the plain backward keeps them fp32)
+BWD_REL_L2, BWD_MAX = 1e-2, 2e-2
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, as tests/test_kernels.py
 #: served logits may be this many times further from an fp32 prefill than
 #: the plain-attention bf16 prefill's logits are
@@ -524,8 +537,55 @@ def kernel_check(torch, fa_kernel, fa_ref, device):
         worst = max(worst, row["max_abs_err_plain"])
         rows.append(row)
     acc_rows, acc_worst = accum_check(torch, fa_kernel, fa_ref, device)
-    emit({"phase": "kernel_check", "ok": True, "cases": rows, "accum_bf16_cases": acc_rows})
-    return max(worst, acc_worst)
+    bwd_rows, bwd_worst = backward_check(torch, fa_kernel, device)
+    emit({"phase": "kernel_check", "ok": True, "cases": rows, "accum_bf16_cases": acc_rows,
+          "backward_cases": bwd_rows})
+    return max(worst, acc_worst), bwd_worst
+
+
+def backward_inputs(case, seed, device, torch):
+    """q, k, v of ``case`` in bf16 and the output's gradient do."""
+    B, Sq, _, H, _, dh, _, _ = case
+    q, k, v = attn_inputs(case, torch.bfloat16, seed, device, torch)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    return q, k, v, torch.randn(B, Sq, H, dh, generator=gen, device=device).bfloat16()
+
+
+def backward_check(torch, fa_kernel, device):
+    """The backward kernel on BWD_MAIN_CASES: a gradient through
+    ``FlashAttention`` launches the LSE forward and the backward kernel once
+    each, and its dq, dk and dv are within BWD_REL_L2 (relative L2) and
+    BWD_MAX (of the largest |plain|) of the plain backward's on the same
+    inputs.  Returns (rows, the largest absolute error)."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention, plain_backward
+    rows, worst = [], 0.0
+    for i, case in enumerate(BWD_MAIN_CASES):
+        *_, causal, window = case
+        chunk = min(1024, case[2])
+        q, k, v, do = backward_inputs(case, 200 + i, device, torch)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts, bwd_before = flash_counts(fa_kernel), fa_kernel.bwd_launches
+        got = torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, chunk),
+                                  leaves, do)
+        torch.cuda.synchronize()
+        took = tuple(a - b for a, b in zip(flash_counts(fa_kernel), counts))
+        bwd = fa_kernel.bwd_launches - bwd_before
+        check(took == (1, 1, 0, 0) and bwd == 1,
+              f"backward case {case}: launches (all, TMA, mma.sync, fp32) {took} and "
+              f"{bwd} of the backward kernel, want one each")
+        want = plain_backward(q, k, v, do, causal=causal, window=window, chunk=chunk)
+        row = {"case": list(case), "backward_kernel_launches": bwd}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            err = (g - w).abs().max().item()
+            row[name] = {"rel_l2": ((g - w).norm() / w.norm()).item(), "max_abs_err": err,
+                         "max_err_over_max_plain": err / w.abs().max().item()}
+            check(row[name]["rel_l2"] <= BWD_REL_L2 and row[name]["max_err_over_max_plain"]
+                  <= BWD_MAX, f"backward kernel vs the plain backward: {name}: {row}")
+            worst = max(worst, err)
+        rows.append(row)
+        del q, k, v, do, leaves, got, want
+    return rows, worst
 
 
 def accum_check(torch, fa_kernel, fa_ref, device):
@@ -658,6 +718,65 @@ def kernel_times(torch, fa_kernel, fa_ref, F, device):
         out.append(row)
         del q, k, v, qt, kt, vt, sdpa, acc
     emit({"phase": "kernel_times", "rows": out})
+    return out
+
+
+def backward_times(torch, fa_kernel, device):
+    """The backward kernel at BWD_MAIN_CASES, as ``kernel_times`` times the
+    forward: CUDA-event ms and the profiler's device ms per call of its
+    three kernels (prep, main, dQ pass; each apart too), the plain backward
+    (its oracle) and SDPA's backward (``is_causal``, the library's; the
+    port never calls it).  The bound is the forward's at 2.5x its FLOPs (5
+    products of 2 dh a pair, not 2) and 2x its bytes (q, k, v, o, dO read;
+    dq, dk, dv written; lse, D and the fp32 dQ accumulator besides), as
+    portbench/metrics/flash_bwd_roofline.train.py counts it."""
+    from repro_torch.kernels.flash_attention.ops import plain_backward
+    out = []
+    for i, case in enumerate(BWD_MAIN_CASES):
+        B, Sq, Skv, H, KV, dh, causal, window = case
+        q, k, v, do = backward_inputs(case, 210 + i, device, torch)
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                               with_lse=True)
+        fwd_bytes, fwd_flops = attention_work(*case, elem_bytes=2)
+        nbytes, flops = 2 * fwd_bytes, 2.5 * fwd_flops
+        t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        kern = lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                     window=window)
+        check(window is None or window >= Skv, f"SDPA's is_causal is not the band of {case}")
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                              enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        row = {"B": B, "S": Sq, "H": H, "KV": KV, "dh": dh, "window": window,
+               "bytes": nbytes, "flops": flops, "ms": time_ms(kern, torch),
+               "plain_ms": time_ms(lambda: plain_backward(q, k, v, do, causal=causal,
+                                                          window=window,
+                                                          chunk=min(1024, Skv)), torch),
+               "bound_ms": max(t_mem, t_ops),
+               "bound_by": "bytes" if t_mem >= t_ops else "operations",
+               "library_ms": time_ms(lib, torch)}
+        row["kernel_ms"] = row["ms"]
+        for key, fn in (("device_ms", kern), ("library_device_ms", lib)):
+            kernels, n, *_ = profile_device(
+                torch, lambda: [fn() for _ in range(PROFILED_CALLS)],
+                complete=lambda counts: counts and all(
+                    c % PROFILED_CALLS == 0 for c in counts.values()))
+            row[key] = sum(kernels.values()) / PROFILED_CALLS
+            row[key.replace("_ms", "_kernels_per_call")] = n / PROFILED_CALLS
+            if key == "device_ms":
+                check(all("attn_bwd_" in name for name in kernels),
+                      f"backward kernels: {sorted(kernels)}")
+                row["device_ms_by_kernel"] = {name[:80]: ms / PROFILED_CALLS
+                                              for name, ms in kernels.items()}
+        row["plain_over_kernel"] = row["plain_ms"] / row["ms"]
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        row["device_ratio_to_library"] = row["device_ms"] / row["library_device_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        out.append(row)
+        del q, k, v, do, o, lse, qt, kt, vt, ot, dot
+    emit({"phase": "backward_times", "rows": out})
     return out
 
 
@@ -1996,14 +2115,18 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
     exact = build(dataclasses.replace(cfg, attn_impl="full", compute_dtype="float32"), device)
     params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
     reset_flash_counts(fa_kernel)
+    bwd_before = fa_kernel.bwd_launches
     loss_k, _, g_k = value_and_grad(s.api, params, batch)
     counts = flash_counts(fa_kernel)
+    bwd = fa_kernel.bwd_launches - bwd_before
     check(counts == (2 * cfg.n_layers, 2 * cfg.n_layers, 0, 0),
           f"flash launches (all, TMA, mma.sync, fp32) {counts} in one loss and gradient, "
           f"want {2 * cfg.n_layers} on the TMA path (forward, then the remat recompute)")
+    check(bwd == cfg.n_layers, f"backward kernel launches {bwd} in one loss and gradient, "
+          f"want {cfg.n_layers}")
     loss_p, _, g_p = value_and_grad(plain, params, batch)
     loss_e, _, g_e = value_and_grad(exact, params32, batch)
-    check(flash_counts(fa_kernel) == counts,
+    check(flash_counts(fa_kernel) == counts and fa_kernel.bwd_launches - bwd_before == bwd,
           f"a plain-attention step launched the kernel: {flash_counts(fa_kernel)}")
     (tok_k, _), (tok_p, _), (tok_e, terms) = (
         token_losses(api, p, batch, torch)
@@ -2019,6 +2142,7 @@ def train_numerics(torch, s, params, batch, fa_kernel, device):
     # (the logits' variance and the labels' gold logits add to it), so
     # ln V and the fp32 path's terms are printed, not checked
     row = {"flash_launches": counts[0], "flash_mma_sync_launches": counts[2],
+           "backward_kernel_launches": bwd,
            "loss_kernel": loss_k.item(), "loss_plain_bf16": loss_p.item(),
            "loss_fp32": loss_e.item(), "ln_vocab": math.log(cfg.vocab_size),
            "loss_terms_fp32": terms,
@@ -2049,7 +2173,9 @@ def read_object(root, meta):
 
 def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device):
     """The training path: full-width training through repro_torch.launch.train,
-    an injected failure, a restart, and the checkpoints' integrity."""
+    an injected failure, a restart, and the checkpoints' integrity.  Returns
+    the two runs' flash and backward kernel launches, their checksum
+    launches, the mirror's, and the mma.sync launches by run."""
     from repro_torch.ckpt.checkpoint import restore_checkpoint
     from repro_torch.core.errors import IntegrityError
     from repro_torch.data import ShardedTokenDataset
@@ -2083,6 +2209,7 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
         # run 1: steps 1-4, checkpoints at 2 and 4, an injected failure before step 5
         torch.cuda.reset_peak_memory_stats(device)
         reset_flash_counts(fa_kernel)
+        bwd_before = fa_kernel.bwd_launches
         cs_kernel.launches = ssm_kernel.launches = 0
         try:
             run_training(s.api, s.opt, s.loop, s.data, ckpt_mgr=s.ckpt, state=state)
@@ -2090,6 +2217,7 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
         except InjectedFailure as exc:
             run1 = exc.result
         fa1, cs1, sync1 = fa_kernel.launches, cs_kernel.launches, fa_kernel.sync_launches
+        bwd1 = fa_kernel.bwd_launches - bwd_before
         check(ssm_kernel.launches == 0, "dense training launched the scan kernel")
         check(fa_kernel.tma_launches == fa1, f"training took the mma.sync flash path {sync1} / "
                                              f"the fp32 path {fa_kernel.f32_launches} times")
@@ -2098,6 +2226,9 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
               f"run 1 ran {run1.steps_run} steps")
         check(fa1 == 2 * cfg.n_layers * run1.steps_run,
               f"{fa1} flash launches in {run1.steps_run} steps, want 2 x {cfg.n_layers} per step")
+        check(bwd1 == cfg.n_layers * run1.steps_run,
+              f"{bwd1} backward kernel launches in {run1.steps_run} steps, want {cfg.n_layers} "
+              f"per step")
         root = os.path.join(tmp, "ckpt", f"step_{FAIL_AT - 1}")
         with open(os.path.join(root, "manifest.json"), "rb") as f:
             manifest = json.loads(f.read())
@@ -2138,10 +2269,12 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
         s2 = launch_train.setup(launch_train.parse_args(
             argv + ["--replicate-to", MIRROR_PROVIDER]))
         reset_flash_counts(fa_kernel)
+        bwd_before = fa_kernel.bwd_launches
         cs_kernel.launches = ssm_kernel.launches = 0
         run2 = run_training(s2.api, s2.opt, s2.loop, s2.data, ckpt_mgr=s2.ckpt,
                             replicator=s2.replicator)
         fa2, cs2, sync2 = fa_kernel.launches, cs_kernel.launches, fa_kernel.sync_launches
+        bwd2 = fa_kernel.bwd_launches - bwd_before
         check(ssm_kernel.launches == 0, "the restart launched the scan kernel")
         check(fa_kernel.tma_launches == fa2, f"the restart took the mma.sync flash path {sync2} "
                                              f"/ the fp32 path {fa_kernel.f32_launches} times")
@@ -2150,6 +2283,8 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
         check(run2.restored_from == FAIL_AT - 1 and run2.steps_run == TRAIN_STEPS - FAIL_AT + 1,
               f"restart: restored_from {run2.restored_from}, steps_run {run2.steps_run}")
         check(fa2 == 2 * cfg.n_layers * run2.steps_run, f"{fa2} flash launches in the restart")
+        check(bwd2 == cfg.n_layers * run2.steps_run,
+              f"{bwd2} backward kernel launches in the restart")
         check(cs2 == n_leaves + sum(t["leaves"] + t["verified"] for t in saves2),
               f"{cs2} checksum launches in the restart: {n_leaves} restored, {saves2}")
         logged = run1.losses + run2.losses + run1.grad_norms + run2.grad_norms
@@ -2192,10 +2327,11 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
                "state_bytes": state_bytes,
                "run1": {"steps_run": run1.steps_run, "losses": run1.losses,
                         "grad_norms": run1.grad_norms, "flash_launches": fa1,
-                        "checksum_launches": cs1},
+                        "backward_kernel_launches": bwd1, "checksum_launches": cs1},
                "restart": {"restored_from": run2.restored_from, "steps_run": run2.steps_run,
                            "losses": run2.losses, "grad_norms": run2.grad_norms,
-                           "flash_launches": fa2, "checksum_launches": cs2},
+                           "flash_launches": fa2, "backward_kernel_launches": bwd2,
+                           "checksum_launches": cs2},
                "step_seconds": run1.step_seconds + run2.step_seconds,
                "median_step_s_after_first": med, "steps_in_median": len(step_s),
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
@@ -2205,7 +2341,7 @@ def train_full_width(torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, devi
                "corruption": corrupt}
         emit({"phase": "train", **row})
         prof = train_profile(torch, s2, state, batch, fa_kernel)
-        return fa1 + fa2, cs1 + cs2, mirror_cs, {
+        return fa1 + fa2, bwd1 + bwd2, cs1 + cs2, mirror_cs, {
             "train_numerics": numerics["flash_mma_sync_launches"], "train": sync1 + sync2,
             "train_profile": prof["flash_mma_sync_launches"]}
     finally:
@@ -2305,17 +2441,22 @@ def train_profile(torch, s, state, batch, fa_kernel):
     """The training rate and where a step's time goes: WARM_STEPS warm
     steps timed one by one without the profiler, then torch.profiler over
     one step, device time per kernel name and under the step's
-    record_function ranges, and the plain attention backward timed alone.
-    The steps' flash launches must all take the TMA path."""
-    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    record_function ranges, and one layer's attention at the step's shape
+    timed alone: the kernel forward, the kernel backward, the plain backward
+    (the kernel's oracle) and, as the library's yardstick, SDPA's backward.
+    The steps' flash launches must all take the TMA path, and each step one
+    backward kernel launch a layer."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention, plain_backward
     from repro_torch.runtime.steps import make_train_step
     cfg = s.api.cfg
     step_fn = make_train_step(s.api, s.opt)
     reset_flash_counts(fa_kernel)
+    bwd_before = fa_kernel.bwd_launches
     step_fn(state, batch)
     torch.cuda.synchronize()
     walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), WARM_STEPS)]
     wall = statistics.median(walls)
+    # the attention backward keeps its range name on the kernel path too
     ranges = ("train_step/loss_and_grad", "train_step/adamw", "flash_attention/plain_backward")
     kernels, n_launches, spans, cpu_side, busy_in, union, pwall = profile_device(
         torch, lambda: step_fn(state, batch), ranges)
@@ -2324,8 +2465,13 @@ def train_profile(torch, s, state, batch, fa_kernel):
     check(fa_counts == (want, want, 0, 0),
           f"flash launches (all, TMA, mma.sync, fp32) {fa_counts} in {WARM_STEPS + 2} steps, "
           f"want {want} on the TMA path")
+    bwd_counts = fa_kernel.bwd_launches - bwd_before
+    check(bwd_counts == cfg.n_layers * (WARM_STEPS + 2),
+          f"backward kernel launches {bwd_counts} in {WARM_STEPS + 2} steps, "
+          f"want {cfg.n_layers} a step")
     busy = sum(kernels.values())
-    # the attention of one layer at the step's shape: kernel forward, plain backward
+    # the attention of one layer at the step's shape: kernel forward, kernel
+    # and plain backward, SDPA's backward (the library's, never on the path)
     case = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             True, cfg.swa_window)
     q, k, v = (t.requires_grad_() for t in attn_inputs(case, torch.bfloat16, 11,
@@ -2336,7 +2482,19 @@ def train_profile(torch, s, state, batch, fa_kernel):
     o = fwd()
     with torch.no_grad():
         fwd_ms = time_ms(fwd, torch)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), torch)
+    kbwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), torch)
+    bwd_ms = time_ms(lambda: plain_backward(q, k, v, do, causal=True, window=cfg.swa_window,
+                                            chunk=chunk), torch)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    w = cfg.swa_window
+    if w is None or w >= TRAIN_SEQ:  # SDPA's causal mask is the same mask
+        sdpa = dict(is_causal=True)
+    else:
+        pos = torch.arange(TRAIN_SEQ, device=q.device)
+        sdpa = dict(attn_mask=(pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2),
+                                                  retain_graph=True), torch)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     row = {"warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
            "min_step_s": min(walls), "max_step_s": max(walls),
@@ -2347,7 +2505,11 @@ def train_profile(torch, s, state, batch, fa_kernel):
            "flash_mma_sync_launches": fa_counts[2],
            "device_ms_in_range": spans, "device_ms_in_range_cpu_side": cpu_side,
            "device_busy_ms_in_range": busy_in,
-           "attention_layer_ms": {"kernel_forward": fwd_ms, "plain_backward": bwd_ms},
+           "backward_kernel_launches": bwd_counts,
+           "attention_layer_ms": {"kernel_forward": fwd_ms, "kernel_backward": kbwd_ms,
+                                  "plain_backward": bwd_ms, "sdpa_backward": sdpa_ms,
+                                  "plain_over_kernel_backward": bwd_ms / kbwd_ms,
+                                  "kernel_over_sdpa_backward": kbwd_ms / sdpa_ms},
            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
     emit({"phase": "train_profile", **row})
     return row
@@ -2554,12 +2716,15 @@ def moe_numerics(torch, s, params, batch, kernels, device):
                         device)
     params32 = unflatten(params, {k: v.float() for k, v in flatten(params).items()})
     reset_flash_counts(fa_kernel)
+    bwd_before = fa_kernel.bwd_launches
     with routing_recorder(tf, moe) as r_k:
         loss_k, m_k, g_k = value_and_grad(exact, params32, batch)
     counts = flash_counts(fa_kernel)
     check(counts == (2 * cfg.n_layers, 0, 0, 2 * cfg.n_layers),
           f"flash launches (all, TMA, mma.sync, fp32) {counts} in one fp32 loss and gradient, "
           f"want {2 * cfg.n_layers} on the fp32 path (forward, then the remat recompute)")
+    check(fa_kernel.bwd_launches == bwd_before,
+          "an fp32 loss and gradient launched the backward kernel, not the plain backward")
     with routing_recorder(tf, moe) as r_p:
         loss_p, m_p, g_p = value_and_grad(exact_plain, params32, batch)
     check(flash_counts(fa_kernel) == counts, "a plain-attention step launched the kernel")
@@ -2613,12 +2778,14 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
     (``moe_numerics``), MOE_TRAIN_STEPS steps of run_training with 2 TMA
     flash launches per layer and step (the forward, then the block remat's
     recompute), MOE_WARM_STEPS warm steps for the rate and one profiled
-    step, its device time split into the flash forward, the plain attention
-    backward, MoE dispatch and combine (their record_function ranges, the
-    forward and the remat's recompute), AdamW and the rest.  Then the
-    trained parameters are saved with save_checkpoint under ``ckpt_dir``
-    (lanesum32 on the card), for serve_sharded.  Returns (flash launches,
-    mma.sync launches, checksum launches, the trained params, the row)."""
+    step, its device time split into the flash forward, the attention
+    backward (the backward kernel, one launch a layer and step), MoE
+    dispatch and combine (their record_function ranges, the forward and the
+    remat's recompute), AdamW and the rest.  Then the trained parameters are
+    saved with save_checkpoint under ``ckpt_dir`` (lanesum32 on the card),
+    for serve_sharded.  Returns (flash launches, backward kernel launches,
+    mma.sync launches, checksum launches, the trained params, the row, and
+    the dots steps' flash launches, backward kernel launches and row)."""
     from repro_torch.ckpt import save_checkpoint
     from repro_torch.connectors.posix import PosixConnector
     from repro_torch.data import ShardedTokenDataset
@@ -2652,6 +2819,7 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
 
         torch.cuda.reset_peak_memory_stats(device)
         reset_flash_counts(fa_kernel)
+        bwd_before = fa_kernel.bwd_launches
         cs_kernel.launches = ssm_kernel.launches = 0
         run = run_training(s.api, s.opt, s.loop, s.data, state=state)
         fa_run = flash_counts(fa_kernel)
@@ -2660,6 +2828,10 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         check(fa_run == (n_step * run.steps_run, n_step * run.steps_run, 0, 0),
               f"flash launches (all, TMA, mma.sync, fp32) {fa_run} in {run.steps_run} steps, "
               f"want {n_step} a step on the TMA path")
+        bwd_run = fa_kernel.bwd_launches - bwd_before
+        check(bwd_run == cfg.n_layers * run.steps_run,
+              f"backward kernel launches {bwd_run} in {run.steps_run} steps, "
+              f"want {cfg.n_layers} a step")
         check(cs_kernel.launches == 0 and ssm_kernel.launches == 0,
               f"MoE training launched checksum {cs_kernel.launches} / scan "
               f"{ssm_kernel.launches} times")
@@ -2695,7 +2867,7 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         busy = sum(by_name.values())
         fa_ms = sum(ms for n, ms in by_name.items() if "attn_fwd" in n)
         split = {"flash_forward_ms": fa_ms,
-                 "plain_attention_backward_ms": busy_in["flash_attention/plain_backward"],
+                 "attention_backward_ms": busy_in["flash_attention/plain_backward"],
                  "moe_dispatch_ms": busy_in["moe/dispatch"],
                  "moe_combine_ms": busy_in["moe/combine"],
                  "adamw_ms": busy_in["train_step/adamw"]}
@@ -2706,8 +2878,8 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         # train the state on, before the save)
         block_profile = {"device_busy_ms": busy, **idle_of(union, pwall),
                          "kernel_launches": n_launches, "device_busy_ms_in_range": busy_in}
-        dots_fa, dots_row = train_moe_dots(torch, s, state, batch, fa_kernel, step_memory,
-                                           wall, block_profile, device)
+        dots_fa, dots_bwd, dots_row = train_moe_dots(torch, s, state, batch, fa_kernel,
+                                                     step_memory, wall, block_profile, device)
 
         # the trained parameters, saved for serve_sharded: lanesum32 on the card
         params = state["params"]
@@ -2742,7 +2914,8 @@ def train_moe(torch, launch_train, kernels, ckpt_dir, device):
         torch.cuda.empty_cache()
         # the main path's launches: run_training's steps and the save, and
         # the dots steps'
-        return fa_run[0], fa_run[2], cs_kernel.launches, params, row, dots_fa, dots_row
+        return (fa_run[0], bwd_run, fa_run[2], cs_kernel.launches, params, row, dots_fa,
+                dots_bwd, dots_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2797,7 +2970,8 @@ def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s
     before it, beside the block steps' (``block_memory``, ``block_step_s``,
     ``block_profile``); the bytes each holds from its forward to its
     backward (dots' above block's: the saved products) and the peak of its
-    loss and gradient alone.  Returns (flash launches, the row)."""
+    loss and gradient alone.  Returns (flash launches, backward kernel
+    launches, the row)."""
     from repro_torch.models.convert import flatten, unflatten
     from repro_torch.models.registry import build
     from repro_torch.runtime.steps import make_train_step, value_and_grad
@@ -2830,8 +3004,10 @@ def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s
     step_fn(state, batch)
     torch.cuda.synchronize()
     reset_flash_counts(fa_kernel)
+    bwd_before = fa_kernel.bwd_launches
     walls = [ms / 1e3 for ms in wall_ms(torch, lambda: step_fn(state, batch), MOE_WARM_STEPS)]
     fa = flash_counts(fa_kernel)
+    bwd = fa_kernel.bwd_launches - bwd_before
     n_step = 2 * cfg.n_layers
     by_name, n_launches, _, _, busy_in, union, pwall = profile_device(
         torch, lambda: step_fn(state, batch), MOE_STEP_RANGES, complete=lambda counts: sum(
@@ -2856,6 +3032,7 @@ def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s
            "backward_products_block": bwd_b, "backward_products_dots": bwd_d,
            "backward_mm_saved": bwd_b.get("mm", 0) - bwd_d.get("mm", 0),
            "flash_launches_per_step": fa[0] / MOE_WARM_STEPS,
+           "backward_kernel_launches_per_step": bwd / MOE_WARM_STEPS,
            "warm_steps": len(walls), "warm_step_s": walls, "median_step_s": wall,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
            "block_median_step_s": block_step_s, "step_s_over_block": wall / block_step_s,
@@ -2872,6 +3049,9 @@ def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s
     check(fa == (n_step * MOE_WARM_STEPS, n_step * MOE_WARM_STEPS, 0, 0),
           f"flash launches (all, TMA, mma.sync, fp32) {fa} in {MOE_WARM_STEPS} dots steps, "
           f"want {n_step} a step on the TMA path")
+    check(bwd == cfg.n_layers * MOE_WARM_STEPS,
+          f"backward kernel launches {bwd} in {MOE_WARM_STEPS} dots steps, "
+          f"want {cfg.n_layers} a step")
     check(loss_rel <= DOTS_FP32_LIMIT and row["moe_aux_abs_diff"] <= DOTS_FP32_LIMIT,
           f"dots loss {loss_rel} / moe_aux {row['moe_aux_abs_diff']} from block's")
     for path, r in leaves.items():
@@ -2881,7 +3061,7 @@ def train_moe_dots(torch, s, state, batch, fa_kernel, block_memory, block_step_s
           f"products: forward {fwd_b} / {fwd_d}, backward block {bwd_b}, dots {bwd_d}")
     check(held_d > held_b, f"dots holds {held_d} bytes for its backward, block {held_b}")
     check(math.isfinite(row["last_loss"]), f"dots step loss {row['last_loss']}")
-    return fa[0], row
+    return fa[0], bwd, row
 
 
 def free_port() -> int:
@@ -3693,10 +3873,11 @@ def main() -> int:
     kernels = (fa_kernel, cs_kernel, ssm_kernel)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")  # train_moe -> serve_sharded
     try:
-        worst = kernel_check(torch, fa_kernel, fa_ref, device)
+        worst, bwd_worst = kernel_check(torch, fa_kernel, fa_ref, device)
         cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
         ssm_worst = ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device)
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
+        bwd_times = backward_times(torch, fa_kernel, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
         _, serve_fa, serve_sync, accum_row = serve_full_width(
@@ -3711,14 +3892,14 @@ def main() -> int:
         _, vlm_fa, vlm_sync, _ = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
                                                   ssm_kernel, device, arch=VLM_ARCH,
                                                   workloads=LLAVA_WORKLOADS, phase="serve_vlm")
-        train_fa, train_cs, mirror_cs, train_sync = train_full_width(
+        train_fa, train_bwd, train_cs, mirror_cs, train_sync = train_full_width(
             torch, launch_train, fa_kernel, cs_kernel, ssm_kernel, device)
         torch.cuda.empty_cache()
         rwkv_train_ssm, rwkv_train_sync, _ = train_rwkv(
             torch, launch_train, kernels, ssm_ops, ssm_ref, device)
         torch.cuda.empty_cache()
-        (moe_train_fa, moe_train_sync, moe_train_cs, trained, moe_row, dots_fa,
-         dots_row) = train_moe(torch, launch_train, kernels, ckpt_dir, device)
+        (moe_train_fa, moe_train_bwd, moe_train_sync, moe_train_cs, trained, moe_row, dots_fa,
+         dots_bwd, dots_row) = train_moe(torch, launch_train, kernels, ckpt_dir, device)
         torch.cuda.empty_cache()
         _, sharded = serve_sharded(torch, kernels, ckpt_dir, trained, device)
         fed = federate(torch, kernels, ckpt_dir, trained, device, smi[:1])
@@ -3747,6 +3928,10 @@ def main() -> int:
                   "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0,
                   "train_moe": moe_train_fa, "train_moe_dots": dots_fa,
                   "serve_sharded": sharded["flash"], "federate": 0}
+    # the backward kernel's: the bf16 training runs' (serving computes no
+    # gradient; rwkv6 has no attention)
+    bwd_by_path = {"train": train_bwd, "train_rwkv": 0, "train_moe": moe_train_bwd,
+                   "train_moe_dots": dots_bwd}
     # the bf16-accumulating instances' launches (attn_accum_bf16): the
     # mma.sync kernel's in serve_accum_bf16, the fp32 kernel's on no main path
     accum_by_path = {"serve_accum_bf16": {"mma_sync": accum_row["flash_mma_sync_launches"],
@@ -3772,6 +3957,14 @@ def main() -> int:
         "mma_sync_path_launches": sum(sync_by_run.values()),
         "accum_bf16_launches_by_path": accum_by_path,
         "max_abs_err": worst, **{k: times[0][k] for k in keys}, "shapes": times}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/layers.py::chunked_attention (its gradient)",
+        "kernel": "attn_bwd_prep, attn_bwd_main<1|2> (TMA, wgmma), attn_bwd_dq; the forward's "
+                  "attn_fwd_bf16_tma<true> writes the lse",
+        "launches": sum(bwd_by_path.values()), "launches_by_path": bwd_by_path,
+        "max_abs_err": bwd_worst, **{k: bwd_times[0][k] for k in keys},
+        "device_ms": bwd_times[0]["device_ms"], "shapes": bwd_times}, {
         "name": "lanesum32", "route": "cuda",
         "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
         "replaces": "src/repro/kernels/checksum/kernel.py:32",

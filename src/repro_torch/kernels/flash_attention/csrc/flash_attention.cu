@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bound from Python with ctypes
-// (repro_torch/kernels/flash_attention/kernel.py).
+// Flash attention for Hopper (sm_90a), forward and backward, bound from Python
+// with ctypes (repro_torch/kernels/flash_attention/kernel.py).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::_attn_kernel
 // (launched by flash_attention_bhsd).  It computes the same function:
@@ -30,7 +30,12 @@
 //    a row and uses ex2.approx.ftz.  kv tiles wholly outside the causal /
 //    window band are never loaded and only tiles on the band's edges mask.
 //    The output leaves through a shared-memory buffer by a TMA store that
-//    clips rows past Sq, while the next item starts.
+//    clips rows past Sq, while the next item starts.  Two instances: LSE
+//    false is the serving and prefill kernel; LSE true also writes each
+//    row's log-sum-exp for the backward, in base 2 of the scaled scores as
+//    its ex2 softmax has it, lse2 = log2 sum_k 2^(s_k scale log2 e) =
+//    m scale log2 e + log2 l (natural lse = lse2 ln 2), -inf for a row that
+//    sees no key.
 //    Measured (scripts/flash_ablation_torch.py): at dh 120 the K and V
 //    loads alone take about 80% of the kernel's time at B2 S2048, 1.7x
 //    their time at dh 128: rows of 240 bytes sit across 128-byte lines.  A
@@ -55,6 +60,33 @@
 // at another scale and the result is not bit-equal to the plain version.  The
 // ACC_BF16 = false instances are the fp32-accumulating kernels unchanged.
 // It is a numerics mode, not a speed path: the TMA kernel has no such mode.
+//
+// Backward of the TMA forward, three kernels.  The TPU kernel has no backward
+// (the reference trains through jax.grad of its chunked jnp form); these
+// replace that recomputed, differentiated form on the card.  Work: five
+// products of 2 dh flops a visible (q, k) pair and query head (S, dP, dV, dK,
+// dQ: 2.5 times the forward's), against q, k, v, o, dO read and dq, dk, dv
+// written once in bf16 and an fp32 dQ accumulator: bound by tensor-core
+// operations at the training shapes.
+//  * attn_bwd_prep: D = rowsum(dO o O) in fp32, and the dQ accumulator zeroed.
+//  * attn_bwd_main: one block a (batch, kv head, 128-key tile), in key-tile
+//    order so a causal band's longest blocks start first; K and V stay in
+//    shared memory, dK and dV accumulate in fp32 registers over the q tiles
+//    of 64 rows the band touches and the G query heads of the kv head, so
+//    they are written once with no reduction pass.  The producer warp
+//    streams Q, dO (TMA) and lse, D (bulk copies) through a two-stage ring.
+//    Two consumer warpgroups own 64 keys each and recompute S^T = K Q^T and
+//    dP^T = V dO^T on wgmma, form P^T = exp2(S^T scale log2 e - lse2) and
+//    dS^T = P^T (dP^T - D) in registers (only tiles on the band's edges
+//    mask), and accumulate dV += P^T dO and dK += dS^T Q on wgmma with P^T
+//    and dS^T rounded to bf16 as register operands (as the forward rounds
+//    P).  dS^T goes to shared memory in bf16; once both warpgroups wrote
+//    theirs, dQ = dS K over the tile's 128 keys runs on wgmma (dh <= 64: the
+//    warpgroups take turns; else each owns a 64-column half) and is added to
+//    the fp32 accumulator with float2 atomics, whose order varies from run
+//    to run.  Instances for dh <= 64 (64-wide tiles) and dh <= 128 (two
+//    64-column halves; past dh TMA fills zeros).
+//  * attn_bwd_dq: dq = scale x the accumulator, in bf16.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,9 +115,13 @@ struct Params {
   int col2;  // TMA kernel: first column of a tile's second 64-column box
   int accum_chunk;  // mma.sync / fp32 kernels: > 0 for bf16 accumulation over
                     // KV chunks of this many rows (ACC_BF16), 0 for fp32
+  float* lse;       // TMA kernel's LSE instance: (B, H, lse_sp) fp32, lse_sp >= Sq a
+  int lse_sp;       // multiple of 128 (rows past Sq get -inf)
 };
 
-__device__ __forceinline__ bool allowed(const Params& p, int qp, int kp) {
+// (Params or BwdParams)
+template <typename P>
+__device__ __forceinline__ bool allowed(const P& p, int qp, int kp) {
   return kp < p.Skv && qp < p.Sq && (!p.causal || kp <= qp) &&
          (p.window < 0 || kp > qp - p.window);
 }
@@ -545,9 +581,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from moving reads or writes of an accumulator across an
 // asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D (64 x 128, fp32) = A B (scale_d 0) or D + A B (scale_d 1): A 64 x 16 and B
@@ -682,6 +719,7 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[BN_
 // 8n + 2c + j) and d[4n + 2 + j] is (row 16w + g + 8, same column), j = 0, 1.
 // So the scores of kv columns 16i..16i+15 are, packed to bf16 pairs, the A
 // fragment of P V's k-step i.
+template <bool LSE>
 __global__ void __launch_bounds__(NT_T, 1)
     attn_fwd_bf16_tma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -882,6 +920,14 @@ __global__ void __launch_bounds__(NT_T, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+      if constexpr (LSE) {
+        // each row's log2-sum-exp2 of its scaled scores, -inf where no key is allowed
+        if (c == 0) {
+          float* lr = p.lse + (long long)(it.b * p.H + it.h) * p.lse_sp + it.q0 + rt;
+          lr[0] = m0 == -INFINITY ? -INFINITY : m0 * sl2 + log2f(l0);
+          lr[8] = m1 == -INFINITY ? -INFINITY : m1 * sl2 + log2f(l1);
+        }
+      }
       if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 #pragma unroll
@@ -1063,6 +1109,380 @@ __global__ void __launch_bounds__(NT_F32) attn_fwd_f32(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward on TMA and wgmma (attn_bwd_*; see the note at the top).  Shared
+// memory of attn_bwd_main, 64-column halves of 128-byte swizzled rows as in
+// the forward, DH2 halves a head (1 for dh <= 64, 2 for dh <= 128):
+//   K, V  [half][BK_B keys][64]          the block's tiles, loaded once
+//   dS^T  [2][BK_B keys][64 q]           two buffers, alternate steps
+//   ring  [stage]: Q, dO [half][BQ_B rows][64]
+//   stat  [stage]: lse[BQ_B], D[BQ_B]    fp32
+//   mbarriers: K/V full; per stage full, empty
+// ---------------------------------------------------------------------------
+constexpr int BQ_B = 64;       // q rows a step of the backward's loop
+constexpr int BK_B = 128;      // keys a block owns: 64 per consumer warpgroup
+constexpr int STAGES_B = 2;    // (Q, dO, lse, D) tiles in flight
+constexpr int NT_B = 384;      // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int NT_PASS = 256;   // the prep and dQ passes
+
+template <int DH2>
+struct BwdSmem {
+  static constexpr int HALF_K = BK_B * 128;  // a 64-column half of the K or V tile
+  static constexpr int HALF_Q = BQ_B * 128;  // ... of a Q or dO tile
+  static constexpr int OFF_V = DH2 * HALF_K;
+  static constexpr int OFF_DS = 2 * DH2 * HALF_K;
+  static constexpr int OFF_RING = OFF_DS + 2 * BK_B * 128;
+  static constexpr int STAGE = 2 * DH2 * HALF_Q;  // Q, then dO
+  static constexpr int OFF_STAT = OFF_RING + STAGES_B * STAGE;
+  static constexpr int OFF_BAR = OFF_STAT + STAGES_B * 2 * BQ_B * 4;
+  static constexpr size_t BYTES = OFF_BAR + 8 * (1 + 2 * STAGES_B) + 1024;  // + alignment slack
+};
+
+struct BwdParams {
+  const float* lse;  // (B, H, Sp): the forward's log2-sum-exp2 of the scaled scores
+  const float* dd;   // (B, H, Sp): D = rowsum(dO o O), 0 past Sq
+  float* dq_acc;     // (B, H, Sp, 64 DH2): dQ / scale, summed over the key tiles
+  bf16* dk;          // (B, Skv, KV, dh), contiguous
+  bf16* dv;          // (B, Skv, KV, dh), contiguous
+  int B, Sq, Skv, H, KV, dh, Sp;
+  int causal, window;  // window < 0: no window
+  float scale;
+};
+
+// What the prep and dQ passes read and write.
+struct PassParams {
+  const bf16* o;
+  const bf16* dout;
+  bf16* dq;
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh;
+  float* dd;
+  float* acc;
+  int B, Sq, H, dh, Sp, dp2;  // dp2: the accumulator's row, 64 DH2
+  float scale;
+};
+
+// Copies `bytes` contiguous bytes global -> shared, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// D (64 x 64, fp32) = A B (scale_d 0) or D + A B: A 64 x 16 and B 16 x 64, bf16
+// in shared memory, 128-byte swizzle; TA / TB 0 for K-major, 1 for MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, fp32) += A B: A in registers as for wgmma_rs, B 16 x 64 bf16 in
+// shared memory, MN-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64 DH2, fp32) += A B, B the 64 DH2 columns of a Q or dO tile
+template <int DH2>
+__device__ __forceinline__ void wgmma_rs_dh(float (&d)[32 * DH2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (DH2 == 1)
+    wgmma_rs64(d, a, db);
+  else
+    wgmma_rs(d, a, db);
+}
+
+// A wgmma accumulator of R registers (64 x R / 2, fp32) as bf16 A fragments of
+// its columns in k-steps of 16 (the layout note above attn_fwd_bf16_tma).
+template <int R>
+__device__ __forceinline__ void pack_frag(const float (&x)[R], uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < R / 4; ++n) {
+    a[n / 2][2 * (n % 2)] = pack_f32(x[4 * n], x[4 * n + 1]);
+    a[n / 2][2 * (n % 2) + 1] = pack_f32(x[4 * n + 2], x[4 * n + 3]);
+  }
+}
+
+// D = rowsum(dO o O) in fp32 for each (batch, head, q < Sp), 0 past Sq, and the
+// row's dQ accumulator zeroed: one warp a row.
+__global__ void __launch_bounds__(NT_PASS) attn_bwd_prep(PassParams p) {
+  const long long row = (long long)blockIdx.x * (NT_PASS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)p.B * p.H * p.Sp) return;
+  const long long q = row % p.Sp, h = row / p.Sp % p.H, b = row / ((long long)p.Sp * p.H);
+  float s = 0.f;
+  if (q < p.Sq) {
+    const bf16* o = p.o + b * p.o_sb + q * p.o_ss + h * p.o_sh;
+    const bf16* d = p.dout + b * p.do_sb + q * p.do_ss + h * p.do_sh;
+    for (int x = 2 * lane; x < p.dh; x += 64) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + x));
+      const float2 e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + x));
+      s += a.x * e.x + a.y * e.y;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) p.dd[row] = s;
+  float* acc = p.acc + row * p.dp2;
+  for (int x = 2 * lane; x < p.dp2; x += 64) *reinterpret_cast<float2*>(acc + x) = make_float2(0.f, 0.f);
+}
+
+// dQ = scale x its accumulator, in bf16: two columns a thread.
+__global__ void __launch_bounds__(NT_PASS) attn_bwd_dq(PassParams p) {
+  const long long i = (long long)blockIdx.x * NT_PASS + threadIdx.x;
+  const int pairs = p.dh / 2;
+  if (i >= (long long)p.B * p.Sq * p.H * pairs) return;
+  const int x = 2 * int(i % pairs);
+  long long r = i / pairs;
+  const long long h = r % p.H;
+  r /= p.H;
+  const long long q = r % p.Sq, b = r / p.Sq;
+  const float2 a =
+      *reinterpret_cast<const float2*>(p.acc + ((b * p.H + h) * p.Sp + q) * p.dp2 + x);
+  *reinterpret_cast<uint32_t*>(p.dq + b * p.dq_sb + q * p.dq_ss + h * p.dq_sh + x) =
+      pack_f32(a.x * p.scale, a.y * p.scale);
+}
+
+// One block owns one (batch, kv head, BK_B-key tile): K and V stay in shared
+// memory, dK and dV in registers.  It walks the q tiles its band touches and,
+// within each, the G query heads of its kv head; warpgroup 0's one thread
+// streams their Q, dO, lse and D through the ring.  Consumer warpgroup cw owns
+// keys 64 cw..64 cw + 63 of the tile; a step (q tile, head):
+//   S^T = K Q^T, dP^T = V dO^T                       wgmma, both from shared memory
+//   P^T = exp2(S^T scale log2 e - lse), dS^T = P^T (dP^T - D)   in registers
+//   dV += P^T dO, dK += dS^T Q                       wgmma, A from registers
+//   dS^T in bf16 to shared memory; after both warpgroups wrote theirs,
+//   dQ / scale = dS K for 64 columns (dh <= 64: the warpgroups take turns;
+//   else each its half), added to the fp32 accumulator with float2 atomics.
+// Fragment layout of a 64 x N accumulator as at attn_fwd_bf16_tma: the
+// thread's rows are keys 16 warp + g and + 8 of its warpgroup's 64, its
+// columns q rows 8n + 2c + j.
+template <int DH2>
+__global__ void __launch_bounds__(NT_B, 1)
+    attn_bwd_main(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  BwdParams p) {
+  using L = BwdSmem<DH2>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;  // the swizzle repeats every 1024 bytes
+  unsigned char* smem = smem_raw + (sm - raw);
+  const uint32_t kv_full = sm + L::OFF_BAR;
+  auto full = [&](int s) { return sm + L::OFF_BAR + 8 * (1 + 2 * s); };
+  auto empty = [&](int s) { return sm + L::OFF_BAR + 8 * (2 + 2 * s); };
+  auto stage = [&](int s) { return sm + L::OFF_RING + s * L::STAGE; };
+  auto stat = [&](int s) { return L::OFF_STAT + s * 2 * BQ_B * 4; };  // offset of lse, then D
+
+  // key tiles in order, batch and kv head fastest: a causal band's longest
+  // blocks start first
+  const int bk = blockIdx.x % (p.B * p.KV), kt = blockIdx.x / (p.B * p.KV);
+  const int kvh = bk % p.KV, b = bk / p.KV, G = p.H / p.KV;
+  const int k0 = kt * BK_B, k1 = min(k0 + BK_B, p.Skv);
+  // the rows that see a key of the tile: causal q >= k, window q < k + window
+  const int qlo = p.causal ? k0 : 0;
+  const int qhi = p.window >= 0 ? min(p.Sq, k1 - 1 + p.window) : p.Sq;
+  const int qt0 = qlo / BQ_B;
+  const int n_it = qhi > qlo ? ((qhi + BQ_B - 1) / BQ_B - qt0) * G : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES_B; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * DH2 * L::HALF_K);
+      for (int hh = 0; hh < DH2; ++hh) {
+        tma_load(sm + hh * L::HALF_K, &tk, kv_full, 64 * hh, kvh, k0, b);
+        tma_load(sm + L::OFF_V + hh * L::HALF_K, &tv, kv_full, 64 * hh, kvh, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES_B, h = kvh * G + it % G, q0 = (qt0 + it / G) * BQ_B;
+        const uint32_t qs = stage(s);
+        mbar_wait(empty(s), ((it / STAGES_B) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), 2 * DH2 * L::HALF_Q + 2 * BQ_B * 4);
+        for (int hh = 0; hh < DH2; ++hh) {
+          tma_load(qs + hh * L::HALF_Q, &tq, full(s), 64 * hh, h, q0, b);
+          tma_load(qs + (DH2 + hh) * L::HALF_Q, &tdo, full(s), 64 * hh, h, q0, b);
+        }
+        const long long row = (long long)(b * p.H + h) * p.Sp + q0;
+        bulk_load(sm + stat(s), p.lse + row, BQ_B * 4, full(s));
+        bulk_load(sm + stat(s) + BQ_B * 4, p.dd + row, BQ_B * 4, full(s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int kr = 64 * cw + 16 * warp + g;  // this thread's keys of the tile: kr, kr + 8
+    const uint32_t ka = sm + 64 * cw * 128, va = ka + L::OFF_V;  // its warpgroup's K, V rows
+    const float sl2 = p.scale * 1.4426950408889634f;
+    float dv[32 * DH2], dk[32 * DH2];
+#pragma unroll
+    for (int i = 0; i < 32 * DH2; ++i) dv[i] = dk[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES_B, h = kvh * G + it % G, q0 = (qt0 + it / G) * BQ_B;
+      const uint32_t qs = stage(s), dos = qs + DH2 * L::HALF_Q;
+      const uint32_t dsb = sm + L::OFF_DS + (it & 1) * BK_B * 128;
+      const float* lse_s = reinterpret_cast<const float*>(smem + stat(s));
+      const float* d_s = lse_s + BQ_B;
+      float st[32], dp[32];
+      mbar_wait(full(s), (it / STAGES_B) & 1);
+      fence_regs(st);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DH2; ++kk)
+        wgmma_ss64<0, 0>(st, sw128_desc(ka + (kk / 4) * L::HALF_K + (kk % 4) * 32, 16, 1024),
+                         sw128_desc(qs + (kk / 4) * L::HALF_Q + (kk % 4) * 32, 16, 1024),
+                         kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DH2; ++kk)
+        wgmma_ss64<0, 0>(dp, sw128_desc(va + (kk / 4) * L::HALF_K + (kk % 4) * 32, 16, 1024),
+                         sw128_desc(dos + (kk / 4) * L::HALF_Q + (kk % 4) * 32, 16, 1024),
+                         kk > 0);
+      wgmma_commit();
+      // only tiles on the band's edges or past a sequence's end mask
+      const bool edge = k0 + BK_B > p.Skv || q0 + BQ_B > p.Sq ||
+                        (p.causal && k0 + BK_B - 1 > q0) ||
+                        (p.window >= 0 && k0 <= q0 + BQ_B - 1 - p.window);
+      wgmma_wait<1>();
+      fence_regs(st);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * n + 2 * c + j;
+          float l = lse_s[col];
+          l = l == -INFINITY ? INFINITY : l;  // a row that sees no key: P = 0
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& x = st[4 * n + 2 * r + j];
+            const float e = x * sl2 - l;
+            x = (edge && !allowed(p, q0 + col, k0 + kr + 8 * r)) ? 0.f : exp2_ftz(e);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float dd = d_s[8 * n + 2 * c + j];
+          dp[4 * n + j] = st[4 * n + j] * (dp[4 * n + j] - dd);
+          dp[4 * n + 2 + j] = st[4 * n + 2 + j] * (dp[4 * n + 2 + j] - dd);
+        }
+      }
+      uint32_t pa[4][4], da[4][4];  // P^T and dS^T in bf16, k-steps of 16 q rows
+      pack_frag(st, pa);
+      pack_frag(dp, da);
+      // dS^T into this warpgroup's rows of the buffer, for dQ
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        unsigned char* row = smem + (dsb - sm) + ((n ^ g) << 4) + 4 * c;
+        *reinterpret_cast<uint32_t*>(row + kr * 128) = da[n / 2][2 * (n % 2)];
+        *reinterpret_cast<uint32_t*>(row + (kr + 8) * 128) = da[n / 2][2 * (n % 2) + 1];
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+      // dV += P^T dO and dK += dS^T Q: dO and Q read transposed
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ_B / 16; ++kk)
+        wgmma_rs_dh<DH2>(dv, pa[kk], sw128_desc(dos + kk * 16 * 128, L::HALF_Q, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BQ_B / 16; ++kk)
+        wgmma_rs_dh<DH2>(dk, da[kk], sw128_desc(qs + kk * 16 * 128, L::HALF_Q, 1024));
+      wgmma_commit();
+      bar_sync(1, 256);  // both warpgroups' dS^T are in the buffer
+      if (DH2 == 2 || (it & 1) == cw) {
+        // dQ / scale = dS K over the tile's keys for 64 columns: dS read
+        // transposed from its buffer, K from its tile
+        const int hh = DH2 == 2 ? cw : 0;
+        float acc[32];
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK_B / 16; ++kk)
+          wgmma_ss64<1, 1>(acc, sw128_desc(dsb + kk * 16 * 128, L::HALF_Q, 1024),
+                           sw128_desc(sm + hh * L::HALF_K + kk * 16 * 128, L::HALF_K, 1024),
+                           kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        float* dst = p.dq_acc + ((long long)(b * p.H + h) * p.Sp + q0 + 16 * warp + g) * (64 * DH2) +
+                     64 * hh + 2 * c;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          atomicAdd(reinterpret_cast<float2*>(dst + 8 * n), make_float2(acc[4 * n], acc[4 * n + 1]));
+          atomicAdd(reinterpret_cast<float2*>(dst + 8 * 64 * DH2 + 8 * n),
+                    make_float2(acc[4 * n + 2], acc[4 * n + 3]));
+        }
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(dv);
+      fence_regs(dk);
+      if (tid == 0) mbar_arrive(empty(s));
+    }
+
+    // dK (times scale) and dV in bf16; keys past Skv and columns past dh are not written
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + kr + 8 * r;
+      if (key < p.Skv) {
+        const long long off = ((long long)b * p.Skv + key) * p.KV * p.dh + (long long)kvh * p.dh;
+#pragma unroll
+        for (int n = 0; n < 8 * DH2; ++n) {
+          const int col = 8 * n + 2 * c;
+          if (col < p.dh) {
+            *reinterpret_cast<uint32_t*>(p.dk + off + col) =
+                pack_f32(dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(p.dv + off + col) =
+                pack_f32(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 // Sets a kernel's dynamic shared-memory limit once per device, not per launch,
@@ -1086,14 +1506,16 @@ cudaError_t smem_limit_once(Kernel* kernel, size_t bytes, unsigned long long& do
   return cudaSuccess;
 }
 
-// Makes `device` current for the guard's lifetime, if it is not already.
+// Makes `device` current for the guard's lifetime, and its primary context
+// current on the calling thread: autograd's backward thread may have none
+// bound yet, and cuTensorMapEncodeTiled then fails (CUDA_ERROR_INVALID_CONTEXT).
 struct DeviceGuard {
   int prev = -1;
   cudaError_t set(int device) {
     int cur = 0;
     cudaError_t err = cudaGetDevice(&cur);
-    if (err != cudaSuccess || cur == device) return err;
-    prev = cur;
+    if (err != cudaSuccess) return err;
+    if (cur != device) prev = cur;
     return cudaSetDevice(device);
   }
   ~DeviceGuard() {
@@ -1120,6 +1542,8 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, void* o
   for (int i = 0; i < 12; ++i) *dst[i] = strides[i];
   p.scale = scale;
   p.accum_chunk = 0;
+  p.lse = nullptr;
+  p.lse_sp = 0;
   return true;
 }
 
@@ -1168,7 +1592,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int dh, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-unsigned long long smem_set_sync = 0, smem_set_f32 = 0, smem_set_tma = 0;
+unsigned long long smem_set_sync = 0, smem_set_f32 = 0, smem_set_tma = 0, smem_set_tma_lse = 0;
+unsigned long long smem_set_bwd1 = 0, smem_set_bwd2 = 0;
 unsigned long long smem_set_sync_acc = 0, smem_set_f32_acc = 0;
 
 }  // namespace
@@ -1227,11 +1652,14 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
 // stride of a dimension longer than 1 a positive multiple of 8 elements, with
 // dh % 8 == 0: the caller (kernel.tma_path) sends only such inputs here.  An
 // input the tensor maps cannot describe returns cudaErrorInvalidValue and
-// launches nothing.
+// launches nothing.  A non-null lse, (B, H, lse_sp) fp32 with lse_sp a multiple
+// of 128 and >= Sq, runs the instance that also writes each row's log2-sum-exp2
+// (the backward's statistics); null runs the one that writes o alone.
 extern "C" int repro_flash_attention_fwd_tma(const void* q, const void* k, const void* v, void* o,
                                              int B, int Sq, int Skv, int H, int KV, int dh,
                                              const long long* strides, int causal, int window,
-                                             float scale, int device, void* stream) {
+                                             float scale, float* lse, int lse_sp, int device,
+                                             void* stream) {
   DeviceGuard guard;
   if (const cudaError_t err = guard.set(device)) return int(err);
   Params p;
@@ -1251,12 +1679,105 @@ extern "C" int repro_flash_attention_fwd_tma(const void* q, const void* k, const
       !make_map(encode, &tv, v, dh, KV, Skv, B, s[6], s[7], s[8], BN_T) ||
       !make_map(encode, &to, o, dh, H, Sq, B, s[9], s[10], s[11], BM_T / 2))
     return int(cudaErrorInvalidValue);
+  if (lse && (lse_sp % BM_T || lse_sp < Sq)) return int(cudaErrorInvalidValue);
+  p.lse = lse;
+  p.lse_sp = lse_sp;
   int sms = 0;
-  cudaError_t err = smem_limit_once(attn_fwd_bf16_tma, SMEM_T, smem_set_tma, &sms);
+  cudaError_t err = lse ? smem_limit_once(attn_fwd_bf16_tma<true>, SMEM_T, smem_set_tma_lse, &sms)
+                        : smem_limit_once(attn_fwd_bf16_tma<false>, SMEM_T, smem_set_tma, &sms);
   if (err != cudaSuccess) return int(err);
   // persistent: one block per SM walks the (q tile, head, batch) items
   const int n_items = (Sq + BM_T - 1) / BM_T * H * B;
-  attn_fwd_bf16_tma<<<n_items < sms ? n_items : sms, NT_T, SMEM_T,
-                      static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, to, p, n_items);
+  const int grid = n_items < sms ? n_items : sms;
+  if (lse)
+    attn_fwd_bf16_tma<true><<<grid, NT_T, SMEM_T, static_cast<cudaStream_t>(stream)>>>(
+        tq, tk, tv, to, p, n_items);
+  else
+    attn_fwd_bf16_tma<false><<<grid, NT_T, SMEM_T, static_cast<cudaStream_t>(stream)>>>(
+        tq, tk, tv, to, p, n_items);
+  return int(cudaGetLastError());
+}
+
+// The backward of the TMA forward (attn_bwd_prep, attn_bwd_main, attn_bwd_dq,
+// in that order on `stream`).  q, o, dout, dq: (B, Sq, H, dh); k, v, dk, dv:
+// (B, Skv, KV, dh); bf16, dh % 8 == 0, dh <= 128.  strides holds the (batch,
+// seq, head) element strides of q, k, v, o, dout and dq in that order; dk and
+// dv are contiguous.  lse: (B, H, Sp), the LSE forward's; dd: (B, H, Sp) and
+// dq_acc: (B, H, Sp, 64 or 128) fp32 work buffers, Sp >= Sq a multiple of 128.  q,
+// k, v and dout must be as the forward's TMA kernel takes them (kernel.tma_path).
+// Returns cudaGetLastError() after the last launch, or the first error.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout, const float* lse,
+                                         float* dd, float* dq_acc, void* dq, void* dk, void* dv,
+                                         int B, int Sq, int Skv, int H, int KV, int dh,
+                                         const long long* strides, int Sp, int causal, int window,
+                                         float scale, int device, void* stream) {
+  DeviceGuard guard;
+  if (const cudaError_t err = guard.set(device)) return int(err);
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || dh <= 0 || dh > DP ||
+      dh % 8 || Sp % BM_T || Sp < Sq)
+    return int(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return int(cudaErrorNotSupported);
+  const long long* s = strides;
+  alignas(64) CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(encode, &tq, q, dh, H, Sq, B, s[0], s[1], s[2], BQ_B) ||
+      !make_map(encode, &tk, k, dh, KV, Skv, B, s[3], s[4], s[5], BK_B) ||
+      !make_map(encode, &tv, v, dh, KV, Skv, B, s[6], s[7], s[8], BK_B) ||
+      !make_map(encode, &tdo, dout, dh, H, Sq, B, s[12], s[13], s[14], BQ_B))
+    return int(cudaErrorInvalidValue);
+  const int dh2 = dh > 64 ? 2 : 1;
+  PassParams pp;
+  pp.o = static_cast<const bf16*>(o);
+  pp.dout = static_cast<const bf16*>(dout);
+  pp.dq = static_cast<bf16*>(dq);
+  long long* dst[9] = {&pp.o_sb, &pp.o_ss, &pp.o_sh, &pp.do_sb, &pp.do_ss,
+                       &pp.do_sh, &pp.dq_sb, &pp.dq_ss, &pp.dq_sh};
+  for (int i = 0; i < 9; ++i) *dst[i] = s[9 + i];
+  pp.dd = dd;
+  pp.acc = dq_acc;
+  pp.B = B;
+  pp.Sq = Sq;
+  pp.H = H;
+  pp.dh = dh;
+  pp.Sp = Sp;
+  pp.dp2 = 64 * dh2;
+  pp.scale = scale;
+  BwdParams p;
+  p.lse = lse;
+  p.dd = dd;
+  p.dq_acc = dq_acc;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.B = B;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.H = H;
+  p.KV = KV;
+  p.dh = dh;
+  p.Sp = Sp;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)B * H * Sp;
+  attn_bwd_prep<<<unsigned((rows + NT_PASS / 32 - 1) / (NT_PASS / 32)), NT_PASS, 0, st>>>(pp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(unsigned((Skv + BK_B - 1) / BK_B * KV * B));
+  if (dh2 == 1) {
+    err = smem_limit_once(attn_bwd_main<1>, BwdSmem<1>::BYTES, smem_set_bwd1);
+    if (err != cudaSuccess) return int(err);
+    attn_bwd_main<1><<<grid, NT_B, BwdSmem<1>::BYTES, st>>>(tq, tk, tv, tdo, p);
+  } else {
+    err = smem_limit_once(attn_bwd_main<2>, BwdSmem<2>::BYTES, smem_set_bwd2);
+    if (err != cudaSuccess) return int(err);
+    attn_bwd_main<2><<<grid, NT_B, BwdSmem<2>::BYTES, st>>>(tq, tk, tv, tdo, p);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const long long pairs = (long long)B * Sq * H * (dh / 2);
+  attn_bwd_dq<<<unsigned((pairs + NT_PASS - 1) / NT_PASS), NT_PASS, 0, st>>>(pp);
   return int(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""ctypes binding of the Hopper flash-attention forward kernels.
+"""ctypes binding of the Hopper flash-attention kernels, forward and backward.
 
 The kernels (``csrc/flash_attention.cu``) replace the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::_attn_kernel``.  They read
@@ -14,6 +14,12 @@ and the output accumulator in bf16 over KV chunks of ``accum_chunk`` rows,
 m and l in fp32.  The mma.sync and fp32 kernels compute it; the TMA kernel
 accumulates in fp32 only, so such calls go to the mma.sync kernel whatever
 ``tma_path`` says.  It is a numerics mode, not a speed path.
+
+``with_lse`` runs the TMA kernel's instance that also writes each row's
+log-sum-exp, in base 2 of the scaled scores, for ``flash_attention_bwd``:
+the backward's three kernels (``attn_bwd_prep``, ``attn_bwd_main``,
+``attn_bwd_dq``) for inputs the TMA kernel takes (``tma_path``) with fp32
+accumulation.  ``bwd_launches`` counts the backward's main-kernel launches.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ tma_launches = 0
 sync_launches = 0
 #: ... the fp32 kernel's
 f32_launches = 0
+#: the backward kernel's launches (attn_bwd_main, one a backward; the prep
+#: and dQ passes launch beside it), counted apart from the forward's
+bwd_launches = 0
 
 #: the ``accum_chunk`` mode's cases on the card (chip_smoke.py's kernel check
 #: and tests/test_torch_gpu.py): B, Sq, Skv, H, KV, dh, causal, window and
@@ -71,10 +80,18 @@ ACC_MEAN_RATIO = 1.1
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p]
-#: C entry point -> its argument types (the mma.sync / fp32 one takes is_bf16)
-_SIGNATURES = {"repro_flash_attention_fwd_tma": _ARGS,
-               "repro_flash_attention_fwd": (_ARGS[:4] + [ctypes.c_int] + _ARGS[4:-2]
-                                             + [ctypes.c_int] + _ARGS[-2:])}
+#: C entry point -> its argument types (the mma.sync / fp32 one takes is_bf16,
+#: the TMA one lse and its padded length)
+_SIGNATURES = {"repro_flash_attention_fwd_tma": (_ARGS[:-2] + [ctypes.c_void_p, ctypes.c_int]
+                                                 + _ARGS[-2:]),
+               "repro_flash_attention_fwd": (_ARGS[:4] + [ctypes.c_int]
+                                             + _ARGS[4:-2] + [ctypes.c_int] + _ARGS[-2:]),
+               "repro_flash_attention_bwd": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+                   ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3 + [
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p])}
+#: rows of the padded (B, H, Sp) statistics: Sp is Sq rounded up to this (the
+#: forward's q tile)
+LSE_ROWS = 128
 _bound: dict = {}
 _variant = None  # a library built from another version of SOURCE (load_variant)
 
@@ -122,11 +139,16 @@ def _tma_ok(dtype, shapes, strides, ptrs) -> bool:
     return True
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None, accum_chunk: int = 0):
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None, accum_chunk: int = 0,
+                        with_lse: bool = False):
     """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) CUDA tensors of one dtype
     (float32 or bfloat16) with unit stride on dh -> (B, Sq, H, dh).
     ``accum_chunk`` > 0: P.V and the accumulator in bf16 over KV chunks of
-    that many rows (the mma.sync or fp32 kernel); 0: fp32 accumulation."""
+    that many rows (the mma.sync or fp32 kernel); 0: fp32 accumulation.
+    ``with_lse`` (TMA-path inputs only): returns (o, lse), lse a
+    (B, H, Sq) fp32 view, row stride Sq rounded up to ``LSE_ROWS``, of each
+    row's log2-sum-exp2 of its scaled scores (natural lse x log2 e; -inf
+    where no key is allowed)."""
     global launches, tma_launches, sync_launches, f32_launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA device")
@@ -156,8 +178,17 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None, accum_chun
             -1 if window is None else int(window), 1.0 / math.sqrt(dh), dev,
             torch._C._cuda_getCurrentRawStream(dev))
     tma = not accum_chunk and _tma_ok(q.dtype, (q.shape, k.shape, v.shape), (qs, ks, vs), ptrs)
+    if with_lse and not tma:
+        raise ValueError("flash_attention_fwd: with_lse needs inputs the TMA kernel takes "
+                         "(bf16, TMA-describable, accum_chunk 0)")
+    lse = None
+    if with_lse:
+        sp = -(-Sq // LSE_ROWS) * LSE_ROWS
+        lse = torch.empty((B, H, sp), device=q.device, dtype=torch.float32)
     if tma:
-        err = _fn("repro_flash_attention_fwd_tma")(*ptrs, *tail)
+        err = _fn("repro_flash_attention_fwd_tma")(
+            *ptrs, *tail[:-2], None if lse is None else lse.data_ptr(),
+            0 if lse is None else lse.shape[2], *tail[-2:])
     else:
         err = _fn("repro_flash_attention_fwd")(*ptrs, int(q.dtype == torch.bfloat16),
                                                *tail[:-2], int(accum_chunk), *tail[-2:])
@@ -171,4 +202,45 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int | None, accum_chun
         sync_launches += 1
     else:
         f32_launches += 1
-    return o
+    return o if lse is None else (o, lse[:, :, :Sq])
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: int | None):
+    """The gradients (dq, dk, dv) of ``flash_attention_fwd`` on inputs
+    ``tma_path`` takes, from its output ``o`` and ``lse`` (``with_lse``) and
+    the output's gradient ``do``; bf16, dq in q's shape, dk and dv in k's,
+    all contiguous.  dq's fp32 accumulator takes atomic adds, so its last
+    bits may differ from run to run."""
+    global bwd_launches
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if not (o.shape == do.shape == q.shape and o.dtype == do.dtype == torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype}, do "
+                         f"{tuple(do.shape)} {do.dtype}, q {tuple(q.shape)}")
+    sp = lse.stride(1)
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Sq) or lse.stride() != (H * sp, sp, 1) \
+            or sp % LSE_ROWS:
+        raise ValueError("flash_attention_bwd: lse must be flash_attention_fwd's (with_lse)")
+    if not tma_path(q, k, v):
+        raise ValueError("flash_attention_bwd: q, k, v must be inputs the TMA kernel takes")
+    if not _tma_ok(do.dtype, [do.shape], [do.stride()], [do.data_ptr()]):
+        do = do.contiguous()
+    if o.stride(3) != 1 or do.stride(3) != 1 or o.data_ptr() % 4:
+        raise ValueError("flash_attention_bwd: o and do need unit stride on dh")
+    dev = q.device
+    dd = torch.empty((B, H, sp), device=dev, dtype=torch.float32)
+    acc = torch.empty((B, H, sp, 64 if dh <= 64 else 128), device=dev, dtype=torch.float32)
+    dq = torch.empty((B, Sq, H, dh), device=dev, dtype=q.dtype)
+    dk = torch.empty((B, Skv, KV, dh), device=dev, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    strides = (ctypes.c_longlong * 18)(*(st for t in (q, k, v, o, do, dq) for st in t.stride()[:3]))
+    idx = dev.index
+    err = _fn("repro_flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dd.data_ptr(), acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Sq, Skv, H, KV, dh, strides, sp, int(causal), -1 if window is None else int(window),
+        1.0 / math.sqrt(dh), idx, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        raise RuntimeError(f"flash attention backward kernel launch failed: error {err}")
+    bwd_launches += 1
+    return dq, dk, dv

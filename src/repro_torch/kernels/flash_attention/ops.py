@@ -20,9 +20,15 @@ computes that mode itself over KV chunks of the same ``chunk`` rows
 
 Both run through ``FlashAttention``, a ``torch.autograd.Function``.  Its
 forward is the dispatch above.  The reference has no backward kernel: it
-trains through ``jax.grad`` of ``chunked_attention``.  So the backward
-here recomputes ``chunked_attention`` under autograd from the saved q, k,
-v and backpropagates through it, on either device; it launches no kernel.
+trains through ``jax.grad`` of ``chunked_attention``.  Its backward here
+takes one of two paths, by what the inputs show (``kernel_backward``):
+CUDA bf16 inputs that the TMA forward takes, outside the ``accum_bf16``
+mode, run the Hopper backward kernel (``kernel.flash_attention_bwd``), from
+the q, k, v, output and per-row log-sum-exp that the forward saved when a
+gradient was due; fp32 inputs, the ``accum_bf16`` mode, the CPU and ``meta``
+keep the plain backward (``plain_backward``), which recomputes
+``chunked_attention`` under autograd from the saved q, k, v and
+backpropagates through it, and which is the kernel's oracle.
 
 Sharded inputs (``DTensor``s, once a cell's params are distributed) go
 through ``local_map``: neither the kernel nor ``FlashAttention`` knows
@@ -54,27 +60,57 @@ def _dispatch(q, k, v, *, causal, window, chunk, accum_bf16=False):
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 
+def kernel_backward(q, k, v, accum_bf16: bool) -> bool:
+    """Whether ``FlashAttention``'s backward runs the kernel on these inputs:
+    CUDA tensors the TMA forward takes (``kernel.tma_path``), outside the
+    ``accum_bf16`` mode.  A function of device, dtypes, shapes, strides,
+    pointers and mode alone."""
+    return q.is_cuda and not accum_bf16 and kernel.tma_path(q, k, v)
+
+
+def plain_backward(q, k, v, do, *, causal, window, chunk, accum_bf16=False):
+    """(dq, dk, dv): the gradient of ``chunked_attention`` (``chunk`` KV rows
+    at a time), recomputed under autograd; contiguous, as a sharded caller's
+    reshape of them needs (DTensor views its local shards and cannot copy; a
+    plain reshape would copy anyway)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                              accum_bf16=accum_bf16)
+    return tuple(g.contiguous() for g in torch.autograd.grad(o, (q, k, v), do))
+
+
 class FlashAttention(torch.autograd.Function):
     """Forward: kernel on CUDA, plain chunked on the CPU.  Backward: the
-    gradient of the plain chunked version (``chunk`` KV rows at a time)."""
+    backward kernel where ``kernel_backward`` holds, else the gradient of the
+    plain chunked version (``plain_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, chunk: int,
                 accum_bf16: bool = False):
-        ctx.save_for_backward(q, k, v)
         ctx.attn = dict(causal=causal, window=window, chunk=chunk, accum_bf16=accum_bf16)
+        # the kernel's statistics are written only when a gradient is due
+        ctx.kernel = any(ctx.needs_input_grad[:3]) and kernel_backward(q, k, v, accum_bf16)
+        if ctx.kernel:
+            o, lse = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                with_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+        ctx.save_for_backward(q, k, v)
         return _dispatch(q, k, v, **ctx.attn)
 
     @staticmethod
     def backward(ctx, do):
+        # both paths keep this range's name: portbench/metrics/attn_bwd_ms.train.py
+        # reads it, and a reader that finds no range refuses its traced line
         with span("flash_attention/plain_backward"):
-            with torch.enable_grad():
-                q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-                o = chunked_attention(q, k, v, **ctx.attn)
-            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
-        # contiguous, as a sharded caller's reshape of them needs (DTensor views
-        # its local shards and cannot copy; a plain reshape would copy anyway)
-        return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None, None
+            if ctx.kernel:
+                q, k, v, o, lse = ctx.saved_tensors
+                dq, dk, dv = kernel.flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=ctx.attn["causal"], window=ctx.attn["window"])
+            else:
+                dq, dk, dv = plain_backward(*ctx.saved_tensors, do, **ctx.attn)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):

@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the flash-attention forward.
+"""Plain PyTorch versions of the flash-attention forward and of the Hopper
+backward kernel's algebra.
 
 ``attention_ref`` materialises the score matrix (the oracle, counterpart of
 ``repro/kernels/flash_attention/ref.py``).  ``chunked_attention`` streams
 over KV chunks with an online softmax: the arithmetic of the Hopper kernel,
 the CPU path of ``ops.flash_attention`` and the model's CPU attention
-(counterpart of ``repro/models/layers.py::chunked_attention``).
+(counterpart of ``repro/models/layers.py::chunked_attention``); with
+``return_lse`` it also returns each row's log-sum-exp, the statistics the
+kernel's forward hands its backward.  ``flash_attention_bwd_ref`` is that
+backward's algebra: P from the saved log-sum-exp, D = rowsum(dO o O),
+dS = P (dP - D), dK and dV summed over each kv head's query group.
 All take q: (B, Sq, H, dh), k/v: (B, Skv, KV, dh); query head ``h`` reads
 kv head ``h // (H // KV)``.
 """
@@ -46,7 +51,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
 
 def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
                       chunk: int = 1024, q_offset: int = 0, accum_bf16: bool = False,
-                      shard_constrain: bool = False):
+                      shard_constrain: bool = False, return_lse: bool = False):
     """Online-softmax attention over KV chunks of ``chunk`` rows; never
     holds more than an (Sq, chunk) score block.  fp32 statistics and
     accumulator; fully masked rows give 0.  ``accum_bf16`` (the
@@ -54,7 +59,10 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
     bf16, as the reference's chunked path does.  ``shard_constrain`` pins
     k and v to (batch, kv_heads) under the active sharding rules, as the
     reference pins its KV chunks.  ``DTensor``s run it on each rank's local
-    batch rows and heads (``sharding.rules.local_heads``)."""
+    batch rows and heads (``sharding.rules.local_heads``).  ``return_lse``
+    (plain tensors only) returns (out, lse): lse (B, H, Sq) fp32, the natural
+    log-sum-exp of each row's scaled scores, -inf for a row that sees no
+    key."""
     if shard_constrain:
         k = logical_constraint(k, "batch", None, "kv_heads", None)
         v = logical_constraint(v, "batch", None, "kv_heads", None)
@@ -92,4 +100,41 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
         m = m_new
     out = acc.float() / torch.clamp(l, min=1e-20)[..., None]
     out = out.permute(0, 3, 1, 2, 4)  # (B, Sq, KV, G, dh)
-    return out.reshape(B, Sq, H, dh).to(q.dtype)
+    out = out.reshape(B, Sq, H, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(torch.isinf(m), float("-inf"), m + torch.log(l))
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool, window: int | None = None,
+                            round_operands: bool = False):
+    """(dq, dk, dv) of attention from its output ``o``, each row's natural
+    log-sum-exp ``lse`` (B, H, Sq) of the scaled scores and the output's
+    gradient ``do``, in fp32, cast to the inputs' dtype: P = exp(s - lse)
+    (0 where masked), dP = dO V^T, D = rowsum(dO o O), dS = P (dP - D),
+    dV = P^T dO, dK = scale dS^T Q and dQ = scale dS K, dK and dV summed over
+    the G query heads of each kv head.  A row that sees no key gives zero
+    gradients.  ``round_operands`` rounds P and dS to bf16 before the
+    products that take them, as the kernel does.  Materialises the
+    (Sq, Skv) blocks: a plain version for tests, the algebra of the Hopper
+    backward kernel."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    qg, dog, og = (t.reshape(B, Sq, KV, G, dh).float() for t in (q, do, o))
+    kf, vf = k.float(), v.float()
+    mask = _mask(torch.arange(Sq, device=q.device), torch.arange(Skv, device=q.device),
+                 causal=causal, window=window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    p = torch.exp(s - lse.float().reshape(B, KV, G, Sq)[..., None]).masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    d = (dog * og).sum(-1).permute(0, 2, 3, 1)  # (B, KV, G, Sq)
+    ds = p * (dp - d[..., None])
+    if round_operands:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    return dq.reshape(B, Sq, H, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,5 +1,6 @@
 """Profiler ranges of the card path: the steps, the model's layers, forward
-and backward, and the kernels' plain backwards.
+and backward, and the kernels' backwards (``flash_attention/plain_backward``
+holds the flash backward kernel's launches as well as the plain form's).
 
 The ranges are ``torch.profiler`` ones, on the clock of the device trace,
 and exist only while a profiler is active: with none, ``span`` is a no-op

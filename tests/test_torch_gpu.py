@@ -21,6 +21,7 @@ served shapes.
 
 import dataclasses
 import hashlib
+import math
 
 import pytest
 
@@ -182,6 +183,151 @@ def test_flash_accum_bf16_matches_plain(cuda, case, chunk, dtype):
     band = lambda r: 1 / ACC_MEAN_RATIO <= r <= ACC_MEAN_RATIO
     assert band(mean_err(got) / mean_err(plain))
     assert not band(mean_err(f32_acc) / mean_err(plain))
+
+
+#: B, Sq, Skv, H, KV, dh, causal, window of the backward kernel: granite-moe's
+#: training step (B2 S4096, 16 / 8 heads of 64, causal), lengths ragged
+#: against its 64-row q and 128-key tiles, windowed and non-causal bands, Sq
+#: above and below Skv with rows that see no key (non-causal window 20 over
+#: 100 keys: rows 119-199), one q head per kv head, dh 32 and 48 (head
+#: columns past dh inside the 64-wide instance's tile), and dh 80, 120 and
+#: 128 (chip_smoke.py's dense and VLM training heads) on the 128-wide instance
+BWD_CASES = [
+    (2, 4096, 4096, 16, 8, 64, True, None),
+    (2, 300, 300, 4, 2, 64, True, None),
+    (1, 256, 256, 4, 2, 64, True, 96),
+    (2, 130, 333, 4, 1, 64, False, 100),
+    (1, 200, 100, 2, 1, 64, False, 20),
+    (2, 333, 333, 16, 16, 64, False, None),
+    (1, 96, 96, 8, 1, 32, True, None),
+    (2, 64, 256, 4, 4, 48, False, None),
+    (1, 130, 130, 2, 2, 80, True, 64),
+    (2, 300, 300, 8, 2, 120, True, 128),
+    (1, 333, 333, 8, 2, 128, True, 200),
+    (1, 1024, 1024, 8, 2, 128, False, None),
+]
+#: the backward kernel against the plain backward (its oracle) on bf16
+#: inputs: relative L2 error of each gradient, and the largest error over
+#: the largest |plain|.  The kernel rounds P and dS to bf16 as operands of
+#: their products (the plain backward keeps them fp32) and writes bf16:
+#: 2^-9 relative a rounding; on an H100 it read 0.0024-0.0031 and 0.003-0.007
+#: on these cases.  Against fp32 truth (the plain algebra on fp32 copies of
+#: the inputs) its error may be BWD_TRUTH_RATIO times the plain backward's
+#: (read: 1.2-1.4x).
+BWD_REL_L2 = 1e-2
+BWD_MAX = 2e-2
+BWD_TRUTH_RATIO = 2.0
+#: ... and against its own algebra in fp32 with P and dS rounded to bf16 where
+#: it rounds them (``flash_attention_bwd_ref(round_operands=True)`` from its
+#: o and lse): what is left is the order of sums, ex2.approx and the bf16
+#: outputs (read: at most 4.3e-4)
+BWD_EMUL_REL_L2 = 2e-3
+
+
+def _bwd_inputs(case, device):
+    B, Sq, Skv, H, KV, dh, _, _ = case
+    q, k, v = _flash_inputs(case, device)
+    gen = torch.Generator(device).manual_seed(sum(case[:6]) + 1)
+    return q, k, v, torch.randn(B, Sq, H, dh, generator=gen, device=device).bfloat16()
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[f"b{i}" for i in range(len(BWD_CASES))])
+def test_flash_bwd_kernel_matches_plain_backward(cuda, case):
+    """A backward through ``FlashAttention`` on bf16 TMA-path inputs runs the
+    backward kernel once (and its forward writes the lse), within BWD_REL_L2
+    and BWD_MAX of the plain backward, and no further from fp32 truth than
+    BWD_TRUTH_RATIO times the plain backward is, and within BWD_EMUL_REL_L2
+    of its own algebra in fp32 (P and dS rounded).  dK and dV are bit-equal
+    from run to run; dQ's fp32 accumulator takes atomic adds, whose order
+    varies, so a rerun is held to BWD_REL_L2 / 10."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention, plain_backward
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    B, Sq, Skv, H, KV, dh, causal, window = case
+    q, k, v, do = _bwd_inputs(case, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa_kernel.tma_launches, fa_kernel.bwd_launches)
+    got = torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, min(1024, Skv)),
+                              leaves, do)
+    again = torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, min(1024, Skv)),
+                                leaves, do)
+    torch.cuda.synchronize()
+    assert (fa_kernel.tma_launches, fa_kernel.bwd_launches) == (before[0] + 2, before[1] + 2)
+    want = plain_backward(q, k, v, do, causal=causal, window=window, chunk=min(1024, Skv))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel_l2(g, w) <= BWD_REL_L2
+        assert float((g.float() - w.float()).abs().max()) <= BWD_MAX * float(w.float().abs().max())
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert _rel_l2(again[0], got[0]) <= BWD_REL_L2 / 10
+    if Sq * Skv <= 1 << 20:
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                               with_lse=True)
+        truth = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse * math.log(2),
+                                        do.float(), causal=causal, window=window)
+        for g, w, t in zip(got, want, truth):
+            assert _rel_l2(g, t) <= BWD_TRUTH_RATIO * _rel_l2(w, t)
+        emul = flash_attention_bwd_ref(q, k, v, o, lse * math.log(2), do, causal=causal,
+                                       window=window, round_operands=True)
+        for g, e in zip(got, emul):
+            assert _rel_l2(g, e) <= BWD_EMUL_REL_L2
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[f"b{i}" for i in range(len(BWD_CASES))])
+def test_flash_fwd_lse_matches_plain_logsumexp(cuda, case):
+    """The TMA forward's LSE instance writes the same output bit for bit as
+    the instance without it, and each row's log2-sum-exp2 of its scaled
+    scores: the plain form's natural logsumexp times log2 e, -inf for the
+    same rows (those that see no key).  The kernel's ex2.approx and log2f
+    read within 3e-6 of it on an H100; the limit is 1e-4."""
+    *_, causal, window = case
+    q, k, v = _flash_inputs(case, cuda)
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
+    assert torch.equal(o, fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window))
+    _, want = chunked_attention(q, k, v, causal=causal, window=window, chunk=1024,
+                                return_lse=True)
+    want = want * math.log2(math.e)
+    dead = torch.isinf(want)
+    assert lse.shape == want.shape and torch.equal(torch.isinf(lse), dead)
+    assert bool((lse[dead] < 0).all())
+    torch.testing.assert_close(lse[~dead], want[~dead], rtol=0, atol=1e-4)
+
+
+def test_flash_backward_dispatch_on_the_card(cuda, monkeypatch):
+    """The kernel backward runs for bf16 TMA-path inputs with a gradient due,
+    one launch a backward; a forward with no gradient due asks for no lse;
+    fp32 inputs, the attn_accum_bf16 mode and inputs TMA cannot describe
+    (mma.sync forward) keep the plain backward and launch no backward
+    kernel, and their gradients are the plain backward's."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention, plain_backward
+    case = BWD_CASES[1]
+    *_, causal, window = case
+    asked = []
+    fwd = fa_kernel.flash_attention_fwd
+    monkeypatch.setattr(fa_kernel, "flash_attention_fwd",
+                        lambda *a, **kw: asked.append(kw.get("with_lse", False)) or fwd(*a, **kw))
+    q, k, v, do = _bwd_inputs(case, cuda)
+    before = fa_kernel.bwd_launches
+    FlashAttention.apply(q, k, v, causal, window, 128)
+    assert asked == [False] and fa_kernel.bwd_launches == before
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, 128), leaves, do)
+    assert asked == [False, True] and fa_kernel.bwd_launches == before + 1
+    off = _flash_inputs(case, cuda, offset=1)  # 2 bytes past 16-byte boundaries
+    for name, ins, accum in (("fp32", [t.float() for t in (q, k, v)], False),
+                             ("accum_bf16", [q, k, v], True),
+                             ("mma_sync", off, False)):
+        leaves = [t.detach().requires_grad_() for t in ins]  # views keep their offsets
+        got = torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, 128, accum),
+                                  leaves, do.to(ins[0].dtype))
+        assert fa_kernel.bwd_launches == before + 1, name
+        want = plain_backward(*ins, do.to(ins[0].dtype), causal=causal, window=window,
+                              chunk=128, accum_bf16=accum)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
 
 
 def _digest(t):
@@ -601,6 +747,32 @@ def test_flash_through_local_map_matches_direct_call(cuda, mesh1, dtype, placed)
     assert after[0] == counts[0] + 1 and after[path] == counts[path] + 1
     assert isinstance(got, DTensor)
     assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("placed", ["replicate", "shard"])
+def test_flash_backward_through_local_map_runs_kernel(cuda, mesh1, placed):
+    """Sharded bf16 q, k, v with a gradient due: one backward kernel launch
+    through ``local_map`` on the rank's local tensors, the gradients DTensors
+    whose local dK and dV are bit for bit the direct call's and dQ within
+    BWD_REL_L2 / 10 of it (the order of its atomic adds varies)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    case = FLASH_CASES[-1]
+    *_, causal, window = case
+    q, k, v, do = _bwd_inputs(case, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention(*leaves, causal=causal, window=window),
+                               leaves, do)
+    before = fa_kernel.bwd_launches
+    dleaves = [_on_mesh(mesh1, t.clone(), placed).requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*dleaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, dleaves, _on_mesh(mesh1, do, placed))
+    torch.cuda.synchronize()
+    assert fa_kernel.bwd_launches == before + 1
+    assert all(isinstance(g, DTensor) for g in got)
+    got = [g.to_local() for g in got]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert _rel_l2(got[0], want[0]) <= BWD_REL_L2 / 10
 
 
 @pytest.mark.parametrize("placed", ["replicate", "shard"])

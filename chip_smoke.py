@@ -19,10 +19,15 @@
    ssm_scan recurrence (``ssm_check``: tests/test_kernels.py's cases,
    strong and scalar decay, the chunked kernel's edges (T 1 and 17, a
    decay of about -20 a step, K 128 and 18), the full-width rwkv6 head
-   shape at T 300, 512 and 5120, y and the final state);
+   shape at T 300, 512 and 5120, y and the final state) and the Mamba-1
+   selective scan (``selective_scan_check``: at the published Jamba's
+   width, d_inner 8192 and d_state 16, B1 T 16384 and 65536, y and the
+   final state against the plain chunked form, device memory growing by y
+   and the state only);
 4. times each kernel, its plain version and its bound at the main-path
-   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``); for
-   ssm_scan and flash attention also the device time per call from
+   shapes (``kernel_times``, ``checksum_times``, ``ssm_times``,
+   ``selective_scan_times``); for the scans and flash attention also the
+   device time per call from
    ``torch.profiler``, for flash of the kernel and SDPA alike, and their
    ratio (where the window cuts, SDPA with the band as a mask computes the
    kernel's function, and SDPA with ``is_causal`` over every causal pair
@@ -74,7 +79,13 @@
    attention layer in a prefill, neither in decode; prefill and decode
    logits against the same model through plain attention and the plain
    scan, within HYBRID_FP32_LOGIT_LIMIT (a scan fed bf16 inputs must land
-   beyond it), and the same greedy first tokens;
+   beyond it), and the same greedy first tokens; then the published Jamba
+   (``serve_jamba2``: AI21-Jamba2-Mini, 16 of 32 layers at full width, bf16,
+   the benchmark's configuration and seeded weights) through
+   ``registry.build`` and ``steps.make_prefill_step``: 14 selective-scan
+   launches (one a Mamba layer) and 2 flash launches on the TMA path in a
+   JAMBA2_PROMPT-token prefill, finite logits, the prefill's wall and the
+   card's peak memory;
 10. serves full-width, full-depth whisper-medium (24 encoder and 24 decoder
    layers, bf16) through ``repro_torch.launch.serve`` (``serve_whisper``):
    4 and then 16 requests, each 1500 audio frames and a 64-token decoder
@@ -355,6 +366,15 @@ HYBRID_WORKLOADS = [(2, 256, 8)]
 #: 1.02e-5 over the prefill and 7 decode steps; the scan fed bf16 q, k, v
 #: (ssm_bf16_io) read 0.048 and must stay above it.
 HYBRID_FP32_LOGIT_LIMIT = 1e-3
+#: the published Jamba (AI21-Jamba2-Mini, 16 of 32 layers): the benchmark's
+#: configuration, its selective scan's lengths at B1, and the prompt it serves
+JAMBA2_CONFIG = os.path.join(ROOT, "portbench", "configs", "ai21-jamba2-mini.json")
+SCAN1_LENGTHS = (16384, 65536)
+JAMBA2_PROMPT = 16384
+#: the selective scan against its plain chunked form on the same rounded
+#: inputs: bf16 y within SCAN1_Y_TOL (1 + |y|), a bf16 rounding apart; the
+#: fp32 state within SCAN1_STATE_TOL (1 + |s|)
+SCAN1_Y_TOL, SCAN1_STATE_TOL = 2e-2, 1e-3
 
 WHISPER_ARCH = "whisper-medium"
 #: (requests, decoder prompt tokens, generated tokens), each request with
@@ -1905,6 +1925,170 @@ def serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device):
         del api, params, batch, res, plain, bf16_io, lg_k, lg_b, lg_p
         torch.cuda.empty_cache()
     return results, launches
+
+
+def jamba2_cfg():
+    """The benchmark's AI21-Jamba2-Mini configuration (a dict)."""
+    with open(JAMBA2_CONFIG) as f:
+        return json.load(f)
+
+
+def scan1_inputs(torch, T, D, seed, device):
+    """u, dt, A, B, C, D of a served Mamba-1 layer's scale at B1: bf16 u, B
+    and C, dt = softplus(x - 4) in fp32, A = -(1..16) spread a channel."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device)
+    u, b, c = (rnd(*s).to(torch.bfloat16) for s in ((1, T, D), (1, T, 16), (1, T, 16)))
+    dt = torch.nn.functional.softplus(rnd(1, T, D) - 4.0)
+    A = -torch.exp(torch.log(torch.arange(1, 17, device=device, dtype=torch.float32))
+                   + 0.5 * (torch.rand((D, 1), generator=gen, device=device) - 0.5))
+    return u, dt, A, b, c, rnd(D)
+
+
+def selective_scan_check(torch, scan1_kernel, scan1_ref, device):
+    """The Mamba-1 selective-scan kernel against the plain chunked form
+    (``ref.selective_scan_chunked``, chunk 16) on the same rounded inputs at
+    d_inner 8192, d_state 16, B1, each of SCAN1_LENGTHS: one launch a call,
+    y within SCAN1_Y_TOL and the state within SCAN1_STATE_TOL of it
+    (relative to 1 + |want|), and the device memory the call adds no more
+    than y and the state: no (B, T, D, N) tensor.  Returns the largest
+    absolute error of y."""
+    from portbench.reference.jamba import dims
+    n = dims(jamba2_cfg())
+    rows, worst = [], 0.0
+    for i, T in enumerate(SCAN1_LENGTHS):
+        x = scan1_inputs(torch, T, n["di"], 400 + i, device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches = scan1_kernel.launches
+        y, s_fin = scan1_kernel.selective_scan_fwd(*x)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - before
+        check(scan1_kernel.launches == launches + 1, f"selective scan T {T}: launches")
+        check(y.dtype == torch.bfloat16 and s_fin.dtype == torch.float32,
+              f"selective scan T {T}: dtypes {y.dtype}, {s_fin.dtype}")
+        held = y.numel() * y.element_size() + s_fin.numel() * 4
+        want_y, want_s = scan1_ref.selective_scan_chunked(*x, chunk=16)
+        err_y = (y.float() - want_y.float()).abs()
+        err_s = (s_fin - want_s).abs()
+        row = {"B": 1, "T": T, "D": n["di"], "N": n["N"], "dtype": "bfloat16",
+               "max_abs_err_y": err_y.max().item(), "max_abs_err_state": err_s.max().item(),
+               "max_rel_err_y": (err_y / (1 + want_y.float().abs())).max().item(),
+               "max_rel_err_state": (err_s / (1 + want_s.abs())).max().item(),
+               "y_tol": SCAN1_Y_TOL, "state_tol": SCAN1_STATE_TOL,
+               "bytes_grown": grown, "bytes_of_y_and_state": held}
+        rows.append(row)
+        check(row["max_rel_err_y"] <= SCAN1_Y_TOL and row["max_rel_err_state"] <= SCAN1_STATE_TOL,
+              f"selective scan kernel vs the plain chunked form: {row}")
+        check(grown <= held + ALLOC_SLACK, f"selective scan T {T} grew device memory by {grown} "
+                                           f"B, y and the state are {held} B")
+        worst = max(worst, row["max_abs_err_y"])
+        del x, y, s_fin, want_y, want_s, err_y, err_s
+    emit({"phase": "selective_scan_check", "ok": True, "cases": rows})
+    return worst
+
+
+def selective_scan_times(torch, scan1_kernel, scan1_ref, device):
+    """The selective scan's kernel and plain times at the shapes of
+    ``selective_scan_check``: CUDA-event ms over a loop of calls (``ms``),
+    the kernel's device ms a launch under torch.profiler over
+    PROFILED_CALLS calls (``device_ms``), the plain chunked form's event ms,
+    and the bound of ``portbench/counts_hybrid.py`` (the larger of the bytes
+    over the HBM peak and 5 N D T operations over the fp32 peak), which the
+    benchmark's ``scan_roofline.prefill_hybrid`` uses.  No PyTorch call
+    computes this recurrence, so there is no library time."""
+    from portbench import counts_hybrid
+    from portbench.reference.jamba import dims
+    cfg = jamba2_cfg()
+    n = dims(cfg)
+    out = []
+    for i, T in enumerate(SCAN1_LENGTHS):
+        x = scan1_inputs(torch, T, n["di"], 410 + i, device)
+        nbytes, ops = counts_hybrid.scan_work(cfg, 1, T)
+        t_mem, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+        call = lambda: scan1_kernel.selective_scan_fwd(*x)
+        ms = time_ms(call, torch)
+        kernels, records, *_ = profile_device(
+            torch, lambda: [call() for _ in range(PROFILED_CALLS)],
+            complete=lambda counts: bool(counts)
+            and all("selective_scan_fwd_kernel" in k for k in counts)
+            and sum(counts.values()) >= PROFILED_CALLS // 2)
+        device_ms = sum(kernels.values()) / records
+        bound = counts_hybrid.scan_bound_s(cfg, 1, T) * 1e3
+        out.append({"B": 1, "T": T, "D": n["di"], "N": n["N"], "dtype": "bfloat16",
+                    "bytes": nbytes, "operations": ops, "ms": ms, "kernel_ms": ms,
+                    "device_ms": device_ms, "profiled_records": records,
+                    "plain_ms": time_ms(lambda: scan1_ref.selective_scan_chunked(*x, chunk=16),
+                                        torch, min_s=0.0),
+                    "bound_ms": bound, "bound_by": "bytes" if t_mem >= t_ops else "operations",
+                    "bytes_ms": t_mem, "operations_ms": t_ops, "library_ms": None,
+                    "share_of_bound": bound / ms, "device_share_of_bound": bound / device_ms})
+        del x
+    emit({"phase": "selective_scan_times", "rows": out})
+    return out
+
+
+def serve_jamba2(torch, kernels, scan1_kernel, device):
+    """The published Jamba at full width (AI21-Jamba2-Mini cut to 16 of 32
+    layers, bf16: the benchmark's configuration, ``kinds/prefill_hybrid.py``'s
+    program configuration and weights drawn from a seed) through
+    ``registry.build`` and ``steps.make_prefill_step``, as the benchmark's
+    cell serves it: a warm prefill of one JAMBA2_PROMPT-token request, then
+    one with every launch counter at 0: the selective scan once a Mamba
+    layer (14), flash once an attention layer (2) on the TMA path, no
+    ssm_scan or checksum launch, finite logits.  Returns (row, scan
+    launches, flash launches, mma.sync launches)."""
+    from portbench import weights
+    from portbench.kinds.common import check_layout
+    from portbench.kinds.prefill_hybrid import draw, port_config
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.registry import build
+    from repro_torch.runtime import steps
+    fa_kernel, cs_kernel, ssm_kernel = kernels
+    cfg = jamba2_cfg()
+    arch = port_config(cfg)
+    kinds = arch.block_pattern() * arch.n_blocks
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = build(arch, device)
+    flat = dict(draw(torch, cfg, 0, device))
+    check_layout(flatten(api.abstract_params()), flat)
+    params = weights.tree(flat)
+    del flat
+    prefill = steps.make_prefill_step(api)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device).manual_seed(1)
+    tokens = torch.randint(0, cfg["vocab_size"], (1, JAMBA2_PROMPT), generator=gen, device=device)
+    prefill(params, {"tokens": tokens})  # warm-up
+    torch.cuda.synchronize()
+    reset_flash_counts(fa_kernel)
+    cs_kernel.launches = ssm_kernel.launches = scan1_kernel.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa, scans = flash_counts(fa_kernel), scan1_kernel.launches
+    row = {"config": cfg["name"], "n_layers": arch.n_layers, "mamba_layers": n_mamba,
+           "attention_layers": n_attn, "d_model": arch.d_model,
+           "d_inner": arch.ssm.expand * arch.d_model,
+           "prompt_len": JAMBA2_PROMPT, "setup_s": setup_s, "prefill_ms": wall * 1e3,
+           "prefill_tok_s": JAMBA2_PROMPT / wall, "selective_scan_launches": scans,
+           "flash_launches": list(fa), "ssm_scan_launches": ssm_kernel.launches,
+           "checksum_launches": cs_kernel.launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"phase": "serve_jamba2", **row})
+    check(scans == n_mamba, f"{scans} selective-scan launches in a prefill, want {n_mamba}")
+    check(fa == (n_attn, n_attn, 0, 0), f"flash launches (all, TMA, mma.sync, fp32) {fa}, "
+                                        f"want {n_attn} on the TMA path")
+    check(ssm_kernel.launches == 0 and cs_kernel.launches == 0,
+          "the published Jamba's prefill launched ssm_scan or the checksum kernel")
+    check(bool(torch.isfinite(logits).all()), "the published Jamba's logits are not finite")
+    del api, params, prefill, logits, tokens
+    torch.cuda.empty_cache()
+    return row, scans, fa[0], fa[2]
 
 
 @contextlib.contextmanager
@@ -3829,6 +4013,8 @@ def main() -> int:
     from repro_torch.kernels.checksum import ref as cs_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.selective_scan import kernel as scan1_kernel
+    from repro_torch.kernels.selective_scan import ref as scan1_ref
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan import ref as ssm_ref
@@ -3876,10 +4062,12 @@ def main() -> int:
         worst, bwd_worst = kernel_check(torch, fa_kernel, fa_ref, device)
         cs_worst = checksum_check(torch, cs_ops, cs_ref, device)
         ssm_worst = ssm_check(torch, ssm_ops, ssm_kernel, ssm_ref, device)
+        scan1_worst = selective_scan_check(torch, scan1_kernel, scan1_ref, device)
         times = kernel_times(torch, fa_kernel, fa_ref, F, device)
         bwd_times = backward_times(torch, fa_kernel, device)
         cs_times = checksum_times(torch, cs_kernel, cs_ref, device, largest_leaf)
         s_times = ssm_times(torch, ssm_kernel, ssm_ref, device)
+        scan1_times = selective_scan_times(torch, scan1_kernel, scan1_ref, device)
         _, serve_fa, serve_sync, accum_row = serve_full_width(
             torch, serve, build, fa_kernel, cs_kernel, ssm_kernel, device, accum=True)
         rwkv_rows, rwkv_ssm = serve_rwkv(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
@@ -3888,6 +4076,8 @@ def main() -> int:
                                                              device)
         ssm_worst = max(ssm_worst, mamba_worst)
         _, hybrid = serve_hybrid(torch, serve, build, kernels, ssm_ops, ssm_ref, device)
+        _, jamba2_scan, jamba2_fa, jamba2_sync = serve_jamba2(torch, kernels, scan1_kernel,
+                                                              device)
         _, whisper_fa, whisper_sync = serve_whisper(torch, serve, build, kernels, device)
         _, vlm_fa, vlm_sync, _ = serve_full_width(torch, serve, build, fa_kernel, cs_kernel,
                                                   ssm_kernel, device, arch=VLM_ARCH,
@@ -3919,12 +4109,14 @@ def main() -> int:
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sync_by_run = {"serve": serve_sync,
                    "serve_rwkv": sum(r["flash_mma_sync_launches"] for r in rwkv_rows),
-                   "serve_moe": moe_sync, "serve_whisper": whisper_sync, "serve_vlm": vlm_sync,
+                   "serve_moe": moe_sync, "serve_jamba2": jamba2_sync,
+                   "serve_whisper": whisper_sync, "serve_vlm": vlm_sync,
                    **train_sync, "train_rwkv": rwkv_train_sync, "train_moe": moe_train_sync,
                    "serve_sharded": sharded["sync"]}
     fa_by_path = {"serve": serve_fa, "serve_accum_bf16": accum_row["flash_launches"],
                   "serve_rwkv": 0, "serve_moe": moe_fa, "mamba_layer": 0,
-                  "serve_hybrid": hybrid["flash"], "serve_whisper": whisper_fa,
+                  "serve_hybrid": hybrid["flash"], "serve_jamba2": jamba2_fa,
+                  "serve_whisper": whisper_fa,
                   "serve_vlm": vlm_fa, "train": train_fa, "train_rwkv": 0,
                   "train_moe": moe_train_fa, "train_moe_dots": dots_fa,
                   "serve_sharded": sharded["flash"], "federate": 0}
@@ -3975,7 +4167,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
         "launches": sum(ssm_by_path.values()), "launches_by_path": ssm_by_path,
         "max_abs_err": ssm_worst, **{k: s_times[0][k] for k in keys},
-        "device_ms": s_times[0]["device_ms"], "shapes": s_times + mamba_times}]})
+        "device_ms": s_times[0]["device_ms"], "shapes": s_times + mamba_times}, {
+        "name": "selective_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+        "replaces": "none: the JAX package has no Mamba-1 mixer",
+        "kernel": "selective_scan_fwd_kernel",
+        # only the published Jamba's Mamba-1 layers run it
+        "launches": jamba2_scan, "launches_by_path": {"serve_jamba2": jamba2_scan},
+        "max_abs_err": scan1_worst, **{k: scan1_times[0][k] for k in keys},
+        "device_ms": scan1_times[0]["device_ms"], "shapes": scan1_times}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

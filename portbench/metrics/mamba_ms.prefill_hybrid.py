@@ -1,0 +1,13 @@
+"""Device busy ms per call inside the program's ``mamba/mix`` and ``mamba/scan`` ranges: the Mamba-1 mixers' projections, conv, norms, gate and scan."""
+
+from portbench import readers
+
+LAYER = "Mamba-1 mixer (models/transformer.py)"
+UNIT = "ms"
+MOVES = "prefill_tok_s"
+SOURCE = "program_span"
+RANGES = ("mamba/mix", "mamba/scan")
+
+
+def read(bench, trace):
+    return readers.busy_ms_per_call(bench, trace, RANGES)

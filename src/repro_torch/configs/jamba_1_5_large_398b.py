@@ -1,6 +1,11 @@
-"""Jamba-1.5-Large (398B): Mamba+attention 1:7 interleave, MoE 16e top-2
-every other layer (matches the 398B total / 94B active budget)
-[arXiv:2403.19887]."""
+"""Jamba-1.5-Large (398B) as the reference has it: Mamba+attention 1:7
+interleave, MoE 16e top-2 every other layer (matches the 398B total / 94B
+active budget) [arXiv:2403.19887].  Its mixer is the reference's
+Mamba-2-style SSD (one scalar decay a head, d_state 64, B and C projected
+straight from the input, a gated RMSNorm), not the published Jamba's
+Mamba-1 (one decay per channel and state, d_state 16, a dt_rank
+bottleneck), and attention sits last in each block of 8, not at offset 4.
+The published mixer is the port's ``ssm.kind="mamba1"``."""
 
 from repro_torch.models.common import ArchConfig, MoEConfig, SSMConfig
 

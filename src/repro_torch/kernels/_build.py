@@ -22,7 +22,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: every kernel source of the port, relative to this package
 SOURCES = ["flash_attention/csrc/flash_attention.cu", "checksum/csrc/checksum.cu",
-           "ssm_scan/csrc/ssm_scan.cu"]
+           "ssm_scan/csrc/ssm_scan.cu", "selective_scan/csrc/selective_scan.cu"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -19,15 +19,19 @@ class MoEConfig:
     capacity_factor: float = 1.25
     moe_every: int = 1          # apply MoE FFN every k-th layer (jamba: 2)
     router_dtype: str = "float32"
+    renormalize: bool = True    # top-k gates divided by their sum (AI21 Jamba2: not)
 
 
 @dataclass(frozen=True)
 class SSMConfig:
     """Chunked gated-linear-recurrence family (Mamba-2-style SSD for the
     jamba layers, RWKV6 'Finch' for rwkv).  See DESIGN.md §5 for the
-    TPU adaptation rationale."""
+    TPU adaptation rationale.  ``kind="mamba1"`` is the published Jamba
+    mixer instead: one decay per (channel, state), dt projected through a
+    rank ``dt_rank`` bottleneck (``models/transformer.py::mamba1_apply``);
+    it reads ``d_state``, ``expand``, ``d_conv`` and ``dt_rank``."""
 
-    kind: str = "mamba2"        # "mamba2" | "rwkv6"
+    kind: str = "mamba2"        # "mamba2" | "rwkv6" | "mamba1"
     d_state: int = 64           # key dim per head
     head_dim: int = 64          # value dim per head
     expand: int = 2             # d_inner = expand * d_model (mamba)
@@ -35,6 +39,7 @@ class SSMConfig:
     chunk: int = 128            # chunked-scan block length
     subchunk: int = 16          # intra-chunk pairwise tile (TPU: 128)
     decay_rank: int = 64        # low-rank data-dependent decay (rwkv6)
+    dt_rank: int = 0            # dt projection's inner width (mamba1)
 
 
 @dataclass(frozen=True)
@@ -68,6 +73,8 @@ class ArchConfig:
     norm_eps: float = 1e-5
     # hybrid interleave: one attention layer per `attn_every` layers
     attn_every: int = 1         # jamba: 8 (1 attn : 7 mamba)
+    attn_offset: int | None = None  # attention's place in the block (None: last)
+    use_rope: bool = True       # rotary embeddings in self-attention (AI21 Jamba2: none)
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     encdec: EncDecConfig | None = None
@@ -120,7 +127,8 @@ class ArchConfig:
         """Per-layer kind within one scan block.
 
         For homogeneous stacks the block is one layer; for jamba the
-        block is ``attn_every`` layers (1 attention + N-1 mamba), so
+        block is ``attn_every`` layers (1 attention at ``attn_offset``,
+        last by default, + N-1 mamba), so
         ``lax.scan`` runs over n_layers // attn_every identical blocks.
         """
         if self.family == "ssm":
@@ -128,7 +136,8 @@ class ArchConfig:
         if self.attn_every == 1:
             return ["attn"]
         pat = ["mamba"] * self.attn_every
-        pat[self.attn_every - 1] = "attn"  # attention closes each block
+        # attention closes each block unless ``attn_offset`` places it
+        pat[self.attn_every - 1 if self.attn_offset is None else self.attn_offset] = "attn"
         return pat
 
     @property

@@ -3,8 +3,9 @@ from ``repro/models/moe.py``.
 
 Tokens are scattered into per-expert capacity buffers (no (T, E, C)
 one-hot dispatch tensor), the expert FFNs run as one batched product over
-(E, C, D), and the outputs gather back weighted by the renormalised router
-probabilities.  The semantics are the reference's to the token: the router
+(E, C, D), and the outputs gather back weighted by the router
+probabilities of the top-k, renormalised to sum to 1 (``MoEConfig.renormalize``;
+AI21's Jamba weighs by the raw softmax probabilities).  The semantics are the reference's to the token: the router
 runs in fp32, each (token, slot) takes its place in its expert's queue in
 token-major order, and a slot past the capacity is dropped.  Two layouts
 differ from the reference's, for the card's sake, not the result's: the
@@ -142,10 +143,19 @@ def _to_slots(buf):
 
 def _experts(buf, w):
     """The batched expert FFN: (E, C, D) buffers through each expert's
-    (E, D, F) / (E, F, D) weights."""
+    (E, D, F) / (E, F, D) weights.  Where autograd records nothing (a
+    prefill) on a plain tensor, the gate's SiLU and product run in place
+    in its (E, C, F) buffer: two such buffers at a time, not four (9.4 GB,
+    not 18.8, at 64k tokens and 16 experts of width 14336).  A ``DTensor``
+    cannot keep a partial sum's placement through an in-place op."""
     h_in = torch.bmm(buf, w["wi"].to(buf.dtype))
     if "wg" in w:
-        h = F.silu(torch.bmm(buf, w["wg"].to(buf.dtype))) * h_in
+        g = torch.bmm(buf, w["wg"].to(buf.dtype))
+        if g.requires_grad or isinstance(g, DTensor):
+            h = F.silu(g) * h_in
+        else:
+            h = F.silu(g, inplace=True).mul_(h_in)
+        del h_in
     else:
         h = F.gelu(h_in, approximate="tanh")  # jax.nn.gelu's default
     return torch.bmm(h, w["wo"].to(buf.dtype))
@@ -215,7 +225,8 @@ def moe_apply(p, x, cfg: ArchConfig):
         logits = xt.float() @ p["router"]["w"].float()
         probs = torch.softmax(logits, dim=-1)                        # (T, E)
         gate, idx = _top_k(probs, K)                                 # (T, K)
-        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)  # renorm
+        if m.renormalize:
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
         # position of each (token, slot) within its expert queue, token-major
         expert = idx.reshape(T * K)

@@ -2,7 +2,8 @@
 
 A model is a stack of blocks, each a list of (mixer, ffn) layers as the
 reference's ``_layer_kinds`` gives them: the mixer attention, the mamba2
-mixer (jamba) or the rwkv6 time mix; the ffn a dense MLP, MoE or the rwkv
+mixer (jamba), the published Mamba-1 mixer (``ssm.kind="mamba1"``, AI21's
+Jamba; the port's alone) or the rwkv6 time mix; the ffn a dense MLP, MoE or the rwkv
 channel mix.  An encoder-decoder (whisper) adds an encoder stack of the
 same blocks, run non-causally over ``batch["audio_embeds"]``, and a
 cross-attention branch in every decoder layer; a VLM (llava) puts the
@@ -33,6 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..kernels.selective_scan import ops as scan1_ops
+from ..kernels.selective_scan.ref import selective_scan_step
 from ..kernels.ssm_scan import ops as ssm_ops
 from ..obs.ranges import (backward_span, in_backward, recompute_span, residual_span, sliced,
                           span)
@@ -180,6 +183,105 @@ def mamba_decode(p, x, cfg: ArchConfig, state):
 
 
 # ===========================================================================
+# Mamba-1 mixer (the published Jamba's SSM layers; HF ``modeling_jamba.py``)
+# ===========================================================================
+#: the range of a softplus(dt_bias) draw: Mamba's dt_min / dt_max.  The
+#: benchmark draws its own weights (portbench/kinds/prefill_hybrid.py::draw)
+#: from its configuration's ``dt_range``: keep the two equal
+DT_RANGE = (1e-3, 1e-1)
+#: spread of a channel's log A about log(1..N), so that channels differ; the
+#: configuration's ``a_log_spread``, kept equal the same way
+A_LOG_SPREAD = 0.5
+
+
+def mamba1_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    """Mamba-1's parameters: the projections in ``dtype`` (linear weights
+    ``(d_in, d_out)``, no bias), the depthwise conv's (k, d_inner) weights
+    and bias, RMSNorm scales of dt, B and C, and in fp32 ``dt_bias``
+    (softplus of it log-uniform in ``DT_RANGE``), ``A_log`` (log(1..N) plus
+    a uniform spread of ``A_LOG_SPREAD`` a channel) and ``D``."""
+    s = cfg.ssm
+    d, di, N, R = cfg.d_model, s.expand * cfg.d_model, s.d_state, s.dt_rank
+    dev = gen.device
+    p = {
+        "in_proj": linear_init(gen, d, 2 * di, dtype),
+        "conv_w": _normal(gen, (s.d_conv, di), dtype, 0.5),
+        "conv_b": _normal(gen, (di,), dtype, 0.25),
+        "x_proj": linear_init(gen, di, R + 2 * N, dtype),
+        "dt_norm": rmsnorm_init(R, dtype, dev),
+        "b_norm": rmsnorm_init(N, dtype, dev),
+        "c_norm": rmsnorm_init(N, dtype, dev),
+        "dt_proj": linear_init(gen, R, di, dtype),
+        "out_proj": linear_init(gen, di, d, dtype, scale=1.0 / math.sqrt(di * 2 * cfg.n_layers)),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+    }
+    if dev.type == "meta":
+        p["dt_bias"] = torch.empty((di,), dtype=torch.float32, device=dev)
+        p["A_log"] = torch.empty((di, N), dtype=torch.float32, device=dev)
+        return p
+    lo, hi = (math.log(v) for v in DT_RANGE)
+    dt = torch.exp(lo + (hi - lo) * torch.rand((di,), generator=gen, device=dev))
+    p["dt_bias"] = dt + torch.log(-torch.expm1(-dt))     # softplus(dt_bias) = dt
+    spread = A_LOG_SPREAD * (torch.rand((di, 1), generator=gen, device=dev) - 0.5)
+    p["A_log"] = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=dev)) + spread
+    return p
+
+
+def _mamba1_ssm_inputs(p, uc, cfg: ArchConfig):
+    """(dt (B, S, d_inner) fp32 after softplus, B_t, C_t (B, S, N)) from the
+    conv's output ``uc``: x_proj split into dt, B and C, each RMS-normed."""
+    s = cfg.ssm
+    dbc = linear(p["x_proj"], uc)
+    dt, Bt, Ct = torch.split(dbc, [s.dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = rmsnorm(p["dt_norm"], dt, cfg.norm_eps)
+    Bt = rmsnorm(p["b_norm"], Bt, cfg.norm_eps)
+    Ct = rmsnorm(p["c_norm"], Ct, cfg.norm_eps)
+    return F.softplus(linear(p["dt_proj"], dt).float() + p["dt_bias"]), Bt, Ct
+
+
+def mamba1_apply(p, x, cfg: ArchConfig, state=None):
+    """x: (B, S, d).  Returns (y, (ssm_state (B, d_inner, N) fp32,
+    conv_state (B, d_conv - 1, d_inner))).  The scan runs through
+    ``selective_scan.ops.selective_scan`` (the kernel on CUDA) under the
+    profiler range ``mamba/scan``; the rest of the mixer under
+    ``mamba/mix``, before and after it."""
+    s = cfg.ssm
+    S = x.shape[1]
+    di = s.expand * cfg.d_model
+    conv_state_in = None if state is None else state[1]
+    with span("mamba/mix"):
+        u, z = linear(p["in_proj"], x).split(di, dim=-1)
+        uc = F.silu(_causal_conv(u, p["conv_w"].to(x.dtype), conv_state_in)
+                    + p["conv_b"].to(x.dtype))
+        dt, Bt, Ct = _mamba1_ssm_inputs(p, uc, cfg)
+        A = -torch.exp(p["A_log"])
+    with span("mamba/scan"):
+        y, ssm_state = scan1_ops.selective_scan(uc, dt, A, Bt, Ct, p["D"],
+                                                None if state is None else state[0])
+    with span("mamba/mix"):
+        out = linear(p["out_proj"], y * F.silu(z))
+        # a copy: a view of u would keep in_proj's whole (B, S, 2 d_inner) output alive
+        conv_state = (u[:, S - (s.d_conv - 1):].clone() if state is None
+                      else torch.cat([conv_state_in, u], dim=1)[:, -(s.d_conv - 1):])
+    return out, (ssm_state, conv_state)
+
+
+def mamba1_decode(p, x, cfg: ArchConfig, state):
+    """One token.  x: (B, 1, d); state = (ssm (B, d_inner, N) fp32, conv
+    (B, d_conv - 1, d_inner)).  The plain one-token step."""
+    di = cfg.ssm.expand * cfg.d_model
+    ssm_state, conv_state = state
+    u, z = linear(p["in_proj"], x).split(di, dim=-1)
+    ext = torch.cat([conv_state, u], dim=1)             # (B, k, d_inner)
+    uc = F.silu(torch.einsum("bkd,kd->bd", ext, p["conv_w"].to(x.dtype))
+                + p["conv_b"].to(x.dtype))[:, None]
+    dt, Bt, Ct = _mamba1_ssm_inputs(p, uc, cfg)
+    y, ssm_new = selective_scan_step(uc[:, 0], dt[:, 0], -torch.exp(p["A_log"]), Bt[:, 0],
+                                     Ct[:, 0], p["D"], ssm_state)
+    return linear(p["out_proj"], y[:, None] * F.silu(z)), (ssm_new, ext[:, 1:])
+
+
+# ===========================================================================
 # rwkv6 mixer + channel mix ("Finch": data-dependent decay)
 # ===========================================================================
 def _rwkv_dims(cfg: ArchConfig):
@@ -323,7 +425,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross_attention=Fal
     for mixer, ffn in _layer_kinds(cfg):
         layer = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
                  "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device)}
-        init = {"attn": attention_init, "mamba": mamba_init, "rwkv": rwkv_init}[mixer]
+        init = {"attn": attention_init, "mamba": _mamba_fns(cfg)[0], "rwkv": rwkv_init}[mixer]
         layer[mixer] = init(gen, cfg, dtype)
         name, init = {"dense": ("mlp", mlp_init), "moe": ("moe", moe_init),
                       "cmix": ("cmix", cmix_init)}[ffn]
@@ -335,15 +437,24 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, dtype, cross_attention=Fal
     return {"layers": layers}
 
 
+def _mamba_fns(cfg: ArchConfig):
+    """(init, apply, decode) of the config's mamba mixer: Mamba-1 for
+    ``ssm.kind == "mamba1"``, else the mamba2-style SSD."""
+    if cfg.ssm is not None and cfg.ssm.kind == "mamba1":
+        return mamba1_init, mamba1_apply, mamba1_decode
+    return mamba_init, mamba_apply, mamba_decode
+
+
 def _mixer_apply(layer, mixer: str, x, cfg: ArchConfig, causal: bool):
     """``norm1`` and the layer's mixer: (out, the states it leaves for the
     cache)."""
     h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
-        out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal)
+        out, (k, v) = attention_apply(layer["attn"], h, cfg, causal=causal,
+                                      use_rope=cfg.use_rope)
         return out, {"attn_k": k, "attn_v": v}
     if mixer == "mamba":
-        out, (s_ssm, s_conv) = mamba_apply(layer["mamba"], h, cfg)
+        out, (s_ssm, s_conv) = _mamba_fns(cfg)[1](layer["mamba"], h, cfg)
         return out, {"ssm": s_ssm, "conv": s_conv}
     out, (s_ssm, last) = rwkv_time_mix(layer["rwkv"], h, cfg)
     return out, {"ssm": s_ssm, "shift_t": last}
@@ -409,12 +520,12 @@ def block_decode(bp, x, pos: int, cfg: ArchConfig, cache):
         if mixer == "attn":
             j = n["attn"]
             out, _, _ = attention_decode(layer["attn"], h, cache["attn_k"][j],
-                                         cache["attn_v"][j], pos, cfg)
+                                         cache["attn_v"][j], pos, cfg, use_rope=cfg.use_rope)
             n["attn"] += 1
         elif mixer == "mamba":
             j = n["ssm"]
-            out, (s_ssm, s_conv) = mamba_decode(layer["mamba"], h, cfg,
-                                                (cache["ssm"][j], cache["conv"][j]))
+            out, (s_ssm, s_conv) = _mamba_fns(cfg)[2](layer["mamba"], h, cfg,
+                                                      (cache["ssm"][j], cache["conv"][j]))
             cache["ssm"][j].copy_(s_ssm)
             cache["conv"][j].copy_(s_conv)
             n["ssm"] += 1
@@ -642,8 +753,8 @@ def decode_step(params, cache, token, pos: int, cfg: ArchConfig):
 def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
                       dtype=None, enc_len: int | None = None):
     """Zero decode cache: KV caches for attention layers; for mamba layers
-    the fp32 recurrent state (d_state x head_dim) and the last d_conv - 1
-    inputs of the conv; for rwkv layers the fp32 recurrent state and the
+    the fp32 recurrent state (d_state x head_dim a head; Mamba-1's d_inner
+    x d_state) and the last d_conv - 1 inputs of the conv; for rwkv layers the fp32 recurrent state and the
     two token-shift rows; for an encoder-decoder the cross-attention keys
     and values of ``enc_len`` (default ``n_audio_ctx``) encoder positions."""
     dtype = dtype or _dtype(cfg.compute_dtype)
@@ -659,8 +770,10 @@ def make_decode_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
         cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
     if n_mamba:
         d_inner, H = _mamba_dims(cfg)
-        cache["ssm"] = torch.zeros((nb, n_mamba, batch, H, cfg.ssm.d_state, cfg.ssm.head_dim),
-                                   dtype=torch.float32, device=device)
+        state = ((d_inner, cfg.ssm.d_state) if cfg.ssm.kind == "mamba1"
+                 else (H, cfg.ssm.d_state, cfg.ssm.head_dim))
+        cache["ssm"] = torch.zeros((nb, n_mamba, batch, *state), dtype=torch.float32,
+                                   device=device)
         cache["conv"] = torch.zeros((nb, n_mamba, batch, cfg.ssm.d_conv - 1, d_inner),
                                     dtype=dtype, device=device)
     if n_rwkv:

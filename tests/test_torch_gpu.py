@@ -6,8 +6,11 @@ plain), rwkv6 training runs the
 scan kernel twice a layer with the plain scan's gradients, the flash
 kernel's TMA path and its mma.sync path and the ssm_scan kernel agree with
 their plain versions (the scan also on strided q, k and g and on mamba's
-layout, read in place and bit for bit what contiguous copies give), and the
-lanesum32 kernel agrees bit for bit with its plain version.
+layout, read in place and bit for bit what contiguous copies give), the
+Mamba-1 selective-scan kernel agrees with its plain forms (at the published
+Jamba's width, d_inner 8192 and d_state 16, over 16384 steps too) and runs
+once per Mamba layer of a prefill, and the lanesum32 kernel agrees bit for
+bit with its plain version.
 
 It needs a CUDA device and skips without one.  It imports no JAX, so it runs
 where only PyTorch is installed:
@@ -34,6 +37,8 @@ from repro_torch.kernels.checksum.ref import digest_of, lanesum32_torch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import ACC_CASES, ACC_MEAN_RATIO, ACC_TOL
 from repro_torch.kernels.flash_attention.ref import attention_ref, chunked_attention
+from repro_torch.kernels.selective_scan import kernel as scan1_kernel
+from repro_torch.kernels.selective_scan.ref import selective_scan_chunked, selective_scan_ref
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked, ssm_scan_ref
@@ -694,6 +699,86 @@ def test_hybrid_prefill_runs_scan_per_mamba_layer_and_flash_per_attention_layer(
     assert ssm_kernel.launches == before + n_mamba
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(logits_d, want_d, rtol=1e-4, atol=1e-4)
+
+
+#: Bt, T, D, with s0 and D: the Mamba-1 selective scan's cases; the last is
+#: the published Jamba's width at the cell's shortest prompt
+SCAN1_CASES = [(2, 100, 64, True), (1, 1, 32, False), (1, 130, 96, True),
+               (1, 16384, 8192, True)]
+
+
+def _scan1_inputs(case, dtype, device, seed=0):
+    Bt, T, D, extra = case
+    g = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=device)
+    u, Bm, Cm = (rnd(*s).to(dtype) for s in ((Bt, T, D), (Bt, T, 16), (Bt, T, 16)))
+    dt = torch.nn.functional.softplus(rnd(Bt, T, D) - 4.0)
+    A = -torch.exp(torch.log(torch.arange(1, 17, device=device, dtype=torch.float32))
+                   + 0.5 * (torch.rand((D, 1), generator=g, device=device) - 0.5))
+    return u, dt, A, Bm, Cm, (rnd(D) if extra else None), (rnd(Bt, D, 16) if extra else None)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", SCAN1_CASES, ids=[f"c{i}" for i in range(len(SCAN1_CASES))])
+def test_selective_scan_kernel_matches_plain(cuda, case, dtype):
+    """The kernel against the plain chunked form and, up to T 130, the
+    exact step recurrence, on the same (rounded) inputs; the device memory
+    it adds is y and the state alone, no (Bt, T, D, N) tensor."""
+    dtype = getattr(torch, dtype)
+    inputs = _scan1_inputs(case, dtype, cuda)
+    u = inputs[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n = scan1_kernel.launches
+    y, s = scan1_kernel.selective_scan_fwd(*inputs)
+    torch.cuda.synchronize()
+    assert scan1_kernel.launches == n + 1
+    grown = torch.cuda.max_memory_allocated() - before
+    assert grown <= y.numel() * y.element_size() + s.numel() * 4 + (1 << 20), grown
+    assert y.dtype == dtype and s.dtype == torch.float32
+    want_y, want_s = selective_scan_chunked(*inputs, chunk=16)
+    tol_y = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol_y, atol=tol_y)
+    torch.testing.assert_close(s, want_s, rtol=1e-3, atol=1e-3)
+    if case[1] <= 130:
+        step_y, step_s = selective_scan_ref(*inputs)
+        torch.testing.assert_close(y.float(), step_y.float(), rtol=tol_y, atol=tol_y)
+        torch.testing.assert_close(s, step_s, rtol=1e-3, atol=1e-3)
+
+
+def test_jamba2_prefill_runs_selective_scan_per_mamba_layer(cuda):
+    """The published Jamba block, tiny, fp32: a prefill launches the
+    selective scan once per Mamba layer (14 of 16) and flash once per
+    attention layer, a decode step neither, and the logits agree with the
+    same model through the plain scan."""
+    from repro_torch.kernels.selective_scan import ops as scan1_ops
+    from repro_torch.models.common import ArchConfig, MoEConfig, SSMConfig
+    cfg = ArchConfig(arch_id="tiny-jamba", family="hybrid", n_layers=16, d_model=64, n_heads=4,
+                     n_kv_heads=2, d_ff=96, vocab_size=256, attn_every=8, attn_offset=4,
+                     use_rope=False, norm_eps=1e-6,
+                     moe=MoEConfig(n_experts=4, top_k=2, moe_every=2, renormalize=False),
+                     ssm=SSMConfig(kind="mamba1", d_state=16, expand=2, d_conv=4, dt_rank=8),
+                     param_dtype="float32", compute_dtype="float32", remat="none")
+    api = build(cfg, cuda)
+    params = api.init(torch.Generator(api.device).manual_seed(0))
+    tokens = torch.randint(0, 256, (2, 96), device=cuda)
+    before, fa_before = scan1_kernel.launches, fa_kernel.f32_launches
+    with torch.inference_mode():
+        logits, cache, _ = api.prefill(params, {"tokens": tokens}, pad_to=97)
+        assert scan1_kernel.launches == before + 14
+        assert fa_kernel.f32_launches == fa_before + 2
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        api.decode(params, cache, nxt, 96)
+        assert scan1_kernel.launches == before + 14
+        kernel_scan = scan1_ops.selective_scan
+        try:
+            scan1_ops.selective_scan = lambda u, dt, A, B, C, D=None, s0=None: \
+                selective_scan_chunked(u, dt, A, B, C, D, s0)
+            want, _, _ = api.prefill(params, {"tokens": tokens})
+        finally:
+            scan1_ops.selective_scan = kernel_scan
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(scope="module")

@@ -104,12 +104,32 @@ def test_attention_decode_window(pos):
     assert tk2 is tk  # written in place
 
 
+#: fields the port's configs have and the reference's lack, with the
+#: defaults that keep the reference's behaviour (the published Jamba's
+#: settings, ``models/common.py``)
+PORT_ONLY = {(): {"attn_offset": None, "use_rope": True}, ("moe",): {"renormalize": True},
+             ("ssm",): {"dt_rank": 0}}
+
+
+def _without_port_only(d: dict, at=()) -> dict:
+    """``d`` (an ``asdict``) with the port-only fields, each checked to hold
+    its default, taken out."""
+    out = {}
+    for k, v in d.items():
+        if k in PORT_ONLY.get(at, {}):
+            assert v == PORT_ONLY[at][k], (at, k, v)
+        else:
+            out[k] = _without_port_only(v, at + (k,)) if isinstance(v, dict) else v
+    return out
+
+
 def test_layers_configs_match_reference():
-    """The port's config copies equal the reference's field by field."""
+    """The port's config copies equal the reference's field by field, and
+    every field the reference lacks holds its default."""
     from repro.configs import ARCH_IDS
     for arch in ARCH_IDS:
         jcfg, tcfg = jax_get_config(arch), get_config(arch)
-        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg), arch
+        assert dataclasses.asdict(jcfg) == _without_port_only(dataclasses.asdict(tcfg)), arch
 
 
 def _attn_inputs(B=2, S=40, H=4, KV=2, dh=16, seed=9):

@@ -509,6 +509,7 @@ def test_every_kernel_source_is_built_up_front():
     from repro_torch.kernels import _build
     from repro_torch.kernels.checksum import kernel as cs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    for mod in (fa_kernel, cs_kernel, ssm_kernel):
+    from repro_torch.kernels.selective_scan import kernel as scan1_kernel
+    for mod in (fa_kernel, cs_kernel, ssm_kernel, scan1_kernel):
         assert mod.SOURCE in _build.SOURCES, mod.__name__
         assert (Path(_build.PKG_DIR) / mod.SOURCE).is_file()
